@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py [--seed S]
+
+Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
+
+1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. kernels hold each kernel against its plain PyTorch version (run on the
+           CPU on the same inputs) at the main path's shapes and at edge
+           cases; ``feasibility`` and ``table_build`` must agree bit for bit;
+3. main    drive the paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
+           vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for ltc and
+           ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural,
+           100 x 100 = 10,000 trials each, with the launch counts set to 0
+           just before and read just after; then hold per-trial ideal and
+           scheme success on a 20 x 20 subset against the CPU plain path,
+           and time the path and each kernel with CUDA events.
+
+The last three lines of standard output are the card's name and power limit
+(``nvidia-smi``), one JSON object of the kernels, and the result line
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+beside it, the script exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TR = 8.96                      # paper Table I mean tuning range [nm]
+MAIN_CELLS = (("wdm8-g200", "natural"), ("wdm8-g200", "permuted"),
+              ("wdm32-g200", "natural"))
+SCHEMES = ("seq", "rs_ssm", "vtrs_ssm")
+POLICIES = ("ltc", "ltd")
+N_SIDE = 100                   # 100 lasers x 100 rings = 10,000 trials
+SUB_SIDE = 20                  # CPU-checked subset: 20 x 20 trials
+# H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def bits(x):
+    """float32 tensor -> its int32 bit pattern on the CPU."""
+    import torch
+
+    return x.detach().cpu().contiguous().view(torch.int32)
+
+
+def compare(name: str, got, want, errs: list) -> None:
+    """Exact comparison; float32 outputs bit for bit.  Records max |diff|."""
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    if got.dtype == torch.float32:
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = (got[both].double() - want[both].double()).abs().max().item() \
+            if both.any() else 0.0
+        errs.append(err)
+        n_bad = int((bits(got) != bits(want)).sum())
+    else:
+        errs.append(float((got.long() - want.long()).abs().max()) if got.numel() else 0.0)
+        n_bad = int((got != want).sum())
+    if n_bad:
+        fail(f"{name}: {n_bad} of {got.numel()} elements differ from the plain version")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Steady-state milliseconds per call by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def feasibility_cost(t: int, n: int) -> tuple[float, float]:
+    """Bytes: 4 (T, N) float32 inputs and s read, 2 (T,) outputs written.
+    Operations: sub, remainder, divide and max per residual; min per shift."""
+    return 4 * t * n * 4 + n * 4 + 2 * t * 4, 4 * t * n * n + t * n
+
+
+def table_cost(t: int, n: int, e: int, n_j: int, vis_bytes: int = 0) -> tuple[float, float]:
+    """Bytes: 4 (T, N) float32 inputs (+ mask) read; delta, wl (T, N, E) and
+    n_valid (T, N) written.  Operations: laser - ring per (ring, line), then
+    j * fsr, a subtraction and two window compares per candidate."""
+    return (4 * t * n * 4 + vis_bytes + t * n * e * 8 + t * n * 4,
+            t * n * n + 4 * t * n * n * n_j)
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    secs = time.perf_counter() - t0
+    print(f"[build] kernel library ready in {secs:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("[build]", line.strip())
+
+
+def phase_kernels(seed: int) -> dict:
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.api import make_units
+    from repro_torch.core.reach import as_f32
+    from repro_torch.core.sampling import SystemBatch, instantiate
+    from repro_torch.kernels.feasibility import feasibility, feasibility_plain
+    from repro_torch.kernels.table_build import build_tables, build_tables_plain
+
+    errs = {"feasibility": [], "table_build": []}
+    cpu = lambda xs: [x.cpu() for x in xs]  # noqa: E731
+
+    feas_cases = [
+        ("wdm8 natural", WDM_CONFIGS["wdm8-g200"], N_SIDE, N_SIDE),
+        ("wdm8 permuted", WDM_CONFIGS["wdm8-g200"].with_orders("permuted"), N_SIDE, N_SIDE),
+        ("wdm16", WDM_CONFIGS["wdm16-g200"], N_SIDE, N_SIDE),
+        ("wdm32", WDM_CONFIGS["wdm32-g200"], N_SIDE, N_SIDE),
+        ("wdm32 ragged T=10007", WDM_CONFIGS["wdm32-g200"], 1, 10007),
+    ]
+    for name, cfg, n_l, n_r in feas_cases:
+        sys_ = instantiate(cfg, make_units(cfg, seed, n_l, n_r))
+        got = feasibility(*sys_, cfg.s)
+        want = feasibility_plain(*cpu(sys_), cfg.s)
+        for tag, g, w in zip(("ltd", "ltc"), got, want):
+            compare(f"feasibility {name} {tag}", g, w, errs["feasibility"])
+        print(f"[kernels] feasibility {name}: T={sys_.n_trials} bit-exact")
+
+    # d / fsr within an ulp of an integer: laser = ring + m * fsr, nudged.
+    gen = torch.Generator().manual_seed(seed)
+    t, n = 10007, 8
+    fsr = 8.0 + 2.0 * torch.rand(t, n, generator=gen)
+    ring = 10.0 * torch.rand(t, n, generator=gen) - 5.0
+    m = torch.randint(-3, 4, (t, n), generator=gen).to(torch.float32)
+    laser = ring + m * fsr
+    nudge = torch.randint(0, 3, (t, n), generator=gen)
+    laser = torch.where(nudge == 1, torch.nextafter(laser, torch.tensor(torch.inf)), laser)
+    laser = torch.where(nudge == 2, torch.nextafter(laser, torch.tensor(-torch.inf)), laser)
+    tr_unit = 0.9 + 0.2 * torch.rand(t, n, generator=gen)
+    crafted = SystemBatch(laser, ring, fsr, tr_unit)
+    s = torch.randperm(n, generator=gen).numpy()
+    got = feasibility(*(x.cuda() for x in crafted), s)
+    want = feasibility_plain(*crafted, s)
+    for tag, g, w in zip(("ltd", "ltc"), got, want):
+        compare(f"feasibility near-integer {tag}", g, w, errs["feasibility"])
+    print(f"[kernels] feasibility near-integer d/fsr: T={t} bit-exact")
+
+    for key in ("wdm8-g200", "wdm32-g200"):
+        cfg = WDM_CONFIGS[key]
+        n = cfg.grid.n_ch
+        sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
+        t = sys_.n_trials
+        gen = torch.Generator().manual_seed(seed + n)
+        masks = {"2-D mask": torch.rand(t, n, generator=gen) < 0.7,
+                 "3-D mask": torch.rand(t, n, n, generator=gen) < 0.7}
+        cases = [(f"TR={tr}", tr, None) for tr in (2.0, 8.96, 20.0)]
+        cases += [(f"TR=8.96 {k}", 8.96, v) for k, v in masks.items()]
+        for name, tr_mean, vis in cases:
+            tr = as_f32(tr_mean, sys_.tr_unit.device) * sys_.tr_unit
+            kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
+            got = build_tables(sys_.laser, sys_.ring, sys_.fsr, tr,
+                               visible=None if vis is None else vis.cuda(), **kw)
+            want = build_tables_plain(*cpu((sys_.laser, sys_.ring, sys_.fsr, tr)),
+                                      visible=vis, **kw)
+            for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
+                compare(f"table_build {key} {name} {tag}", g, w, errs["table_build"])
+            print(f"[kernels] table_build {key} {name}: T={t} E={got[0].shape[-1]} "
+                  f"exact (n_valid max {int(got[2].max())})")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _subset(units, side):
+    """The first side x side samples on the CPU, and their trial indices."""
+    import numpy as np
+
+    from repro_torch.core.sampling import UnitSamples
+
+    n_r = units.u_rlv.shape[0]
+    sub = UnitSamples(units.u_go[:side], units.u_llv[:side], units.u_rlv[:side],
+                      units.u_fsr[:side], units.u_tr[:side])
+    idx = (np.arange(side)[:, None] * n_r + np.arange(side)[None, :]).reshape(-1)
+    return UnitSamples(*(u.cpu().contiguous() for u in sub)), idx
+
+
+def phase_main(seed: int) -> dict:
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api
+    from repro_torch.kernels.feasibility import feasibility
+    from repro_torch.kernels.table_build import build_tables
+
+    cells = []
+    for key, order in MAIN_CELLS:
+        cfg = WDM_CONFIGS[key].with_orders(order)
+        cells.append((f"{key}/{order}", cfg, api.make_units(cfg, seed, N_SIDE, N_SIDE)))
+
+    feasibility.launches = 0
+    build_tables.launches = 0
+    out = {}
+    for name, cfg, units in cells:
+        for scheme in SCHEMES:
+            out[name, scheme] = api.evaluate_scheme(cfg, units, scheme, TR)
+        for policy in POLICIES:
+            out[name, "afp", policy] = api.evaluate_policy(cfg, units, policy, TR)
+            out[name, "min_tr", policy] = api.policy_min_tr(cfg, units, policy)
+    torch.cuda.synchronize()
+    launches = {"feasibility": feasibility.launches, "table_build": build_tables.launches}
+    print(f"[main] launches on the main path: {launches}")
+    for k, v in launches.items():
+        if v == 0:
+            fail(f"kernel {k} was not launched on the main path")
+
+    t = N_SIDE * N_SIDE
+    for name, cfg, units in cells:
+        sub_units, idx = _subset(units, SUB_SIDE)
+        for scheme in SCHEMES:
+            r = out[name, scheme]
+            for f in ("alg_success", "ideal_ok"):
+                v = getattr(r, f)
+                if v.shape != (t,) or v.dtype != torch.bool:
+                    fail(f"{name} {scheme} {f}: {v.dtype}{tuple(v.shape)}")
+            for f in ("afp", "cafp", "lock_err", "order_err"):
+                x = float(getattr(r, f))
+                if not 0.0 <= x <= 1.0:
+                    fail(f"{name} {scheme} {f} = {x} outside [0, 1]")
+            ref = api.evaluate_scheme(cfg, sub_units, scheme, TR)
+            for f in ("alg_success", "ideal_ok"):
+                if not torch.equal(getattr(r, f).cpu()[idx], getattr(ref, f)):
+                    fail(f"{name} {scheme} {f} differs from the CPU plain path "
+                         f"on the {SUB_SIDE}x{SUB_SIDE} subset")
+            print(f"[main] {name} {scheme}: AFP={float(r.afp)!r} CAFP={float(r.cafp)!r} "
+                  f"lock_err={float(r.lock_err)!r} order_err={float(r.order_err)!r} "
+                  f"(subset of {len(idx)} trials equal to the CPU plain path)")
+        for policy in POLICIES:
+            afp = float(out[name, "afp", policy])
+            mtr = float(out[name, "min_tr", policy])
+            if not (0.0 <= afp <= 1.0 and mtr == mtr and mtr >= 0.0):
+                fail(f"{name} {policy}: AFP={afp} min_tr={mtr}")
+            per_trial = api.policy_trial_min_tr(cfg, units, policy).cpu()[idx]
+            ref = api.policy_trial_min_tr(cfg, sub_units, policy)
+            if not torch.equal(bits(per_trial), bits(ref)):
+                fail(f"{name} {policy} per-trial min TR differs from the CPU plain path")
+            print(f"[main] {name} policy {policy}: AFP={afp!r} min_tr={mtr!r}")
+
+    for name, cfg, units in cells:
+        for scheme in SCHEMES:
+            ms = cuda_ms(lambda: api.evaluate_scheme(cfg, units, scheme, TR), 5)
+            print(f"[time] evaluate_scheme {name} {scheme}: {ms!r} ms/call "
+                  f"({t} trials)")
+        for policy in POLICIES:
+            ms = cuda_ms(lambda: api.evaluate_policy(cfg, units, policy, TR), 10)
+            print(f"[time] evaluate_policy {name} {policy}: {ms!r} ms/call")
+    return launches
+
+
+def phase_timing(seed: int) -> dict:
+    """Kernel and plain-version times on the card at the main path's shapes."""
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.api import make_units
+    from repro_torch.core.reach import as_f32
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.kernels.feasibility import feasibility, feasibility_plain
+    from repro_torch.kernels.table_build import build_tables, build_tables_plain
+
+    rows = {}
+    for key in ("wdm8-g200", "wdm32-g200"):
+        cfg = WDM_CONFIGS[key]
+        n = cfg.grid.n_ch
+        sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
+        t = sys_.n_trials
+        feas = (cuda_ms(lambda: feasibility(*sys_, cfg.s), 50),
+                cuda_ms(lambda: feasibility_plain(*sys_, cfg.s), 10),
+                *bound_ms(*feasibility_cost(t, n)))
+        tr = as_f32(TR, sys_.tr_unit.device) * sys_.tr_unit
+        kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
+        args = (sys_.laser, sys_.ring, sys_.fsr, tr)
+        n_j = 2 * cfg.max_fsr_alias + 1
+        table = (cuda_ms(lambda: build_tables(*args, **kw), 20),
+                 cuda_ms(lambda: build_tables_plain(*args, **kw), 3),
+                 *bound_ms(*table_cost(t, n, min(3 * n, n * n_j), n_j)))
+        for kname, (ms, plain, bound, by) in (("feasibility", feas), ("table_build", table)):
+            print(f"[time] {kname} {key} T={t}: kernel {ms!r} ms, plain {plain!r} ms, "
+                  f"bound {bound!r} ms ({by})")
+            rows[kname, key] = (ms, plain, bound, by)
+    return rows
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("src/repro_torch is not beside this script")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this smoke run needs a CUDA card")
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+
+    phase_build()
+    max_err = phase_kernels(args.seed)
+    launches = phase_main(args.seed)
+    rows = phase_timing(args.seed)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    kernels = []
+    for kname, source, replaces in (
+        ("feasibility", "src/repro_torch/kernels/csrc/feasibility.cu",
+         "src/repro/kernels/feasibility.py:28"),
+        ("table_build", "src/repro_torch/kernels/csrc/table_build.cu",
+         "src/repro/kernels/table_build.py:108"),
+    ):
+        ms, plain, bound, by = rows[kname, "wdm32-g200"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max_err[kname],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+        })
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

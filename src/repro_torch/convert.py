@@ -1,0 +1,37 @@
+"""Carry the reference package's inputs across as plain numbers.
+
+The parity tests draw unit samples with the reference (JAX threefry draws
+are not reproduced here) and hand the same float32 arrays to both packages.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .core.grid import ArbitrationConfig, DWDMGrid, VariationModel
+from .core.sampling import UnitSamples, resolve_device
+
+
+def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
+    """``UnitSamples`` from the reference's fields as numpy arrays (float32)."""
+    dev = resolve_device(device)
+    return UnitSamples(*(
+        torch.tensor(np.asarray(a, dtype=np.float32)).to(dev)
+        for a in (u_go, u_llv, u_rlv, u_fsr, u_tr)
+    ))
+
+
+def config_from_fields(grid: Mapping, var: Mapping, r_order: Sequence[int],
+                       s_order: Sequence[int], max_fsr_alias: int = 8
+                       ) -> ArbitrationConfig:
+    """Rebuild an ``ArbitrationConfig`` from the plain fields of the
+    reference's config (``dataclasses.asdict(cfg)`` gives exactly these)."""
+    return ArbitrationConfig(
+        grid=DWDMGrid(**dict(grid)),
+        var=VariationModel(**dict(var)),
+        r_order=tuple(int(v) for v in r_order),
+        s_order=tuple(int(v) for v in s_order),
+        max_fsr_alias=int(max_fsr_alias),
+    )

@@ -1,0 +1,254 @@
+"""High-level arbitration API: the paper's LtC main path.
+
+    from repro_torch.core.api import evaluate_scheme, make_units
+    from repro_torch.configs.wdm import WDM8_G200
+    units = make_units(WDM8_G200, seed=0, n_laser=100, n_ring=100)   # on CUDA
+    r = evaluate_scheme(WDM8_G200, units, "vtrs_ssm", 8.96)
+
+Overrides travel in one ``Variations`` mapping; ``tr_mean`` may also be
+given positionally as the operating point.  The device of the unit samples
+selects the path: CUDA tensors go through the hand-written kernels, CPU
+tensors through their plain PyTorch versions.
+
+Schemes are pluggable: ``register_scheme`` adds a wavelength-oblivious
+arbiter, ``register_scheme_family`` stamps out parametrized variants.  This
+slice registers the LtC schemes ``seq``, ``rs_ssm`` and ``vtrs_ssm``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping, NamedTuple
+
+import torch
+
+from . import ideal, metrics
+from .grid import ArbitrationConfig
+from .outcomes import classify
+from .relation import chain_spec, relation_search
+from .sampling import (SystemBatch, UnitSamples, draw_unit_samples, instantiate,
+                       resolve_device)
+from .search_table import build_search_tables
+from .sequential import sequential_tuning
+from .ssm import Assignment, single_step_matching
+from .variations import Variations, as_variations
+
+# An arbiter maps (cfg, tables, spec) -> Assignment using only oblivious
+# primitives (entry indices and masking events; never wavelength values).
+Arbiter = Callable[..., Assignment]
+
+#: Reference schemes whose machinery later slices of the port bring.
+_LATER_SLICES = (
+    ("seq_retry", "the LtA slice (ideal Lock-to-Any and seq_retry)"),
+    ("protocol_", "the protocol-engine slice"),
+)
+
+
+class SchemeSpec(NamedTuple):
+    """Registry record for a wavelength-oblivious arbitration scheme.
+
+    ``params`` carries the static parameters a parametrized variant was
+    built with (introspection only; the values are baked into the arbiter).
+    """
+
+    name: str
+    arbiter: Arbiter
+    policy: str  # conditioning ideal policy for CAFP: "ltc" | "lta" | "ltd"
+    params: tuple = ()
+
+
+_SCHEME_REGISTRY: dict[str, SchemeSpec] = {}
+
+
+def register_scheme(
+    name: str,
+    arbiter: Arbiter,
+    *,
+    policy: str = "ltc",
+    params: Mapping[str, Any] | None = None,
+) -> SchemeSpec:
+    """Register an oblivious arbitration scheme under ``name``.
+
+    ``policy`` selects the ideal arbiter the scheme is scored against (CAFP
+    conditioning event).  Duplicate registration is an error.
+    """
+    if name in _SCHEME_REGISTRY:
+        raise ValueError(f"scheme {name!r} already registered")
+    if policy not in ("ltd", "ltc", "lta"):
+        raise ValueError(f"unknown conditioning policy {policy!r}")
+    frozen = tuple(sorted(dict(params or {}).items()))
+    spec = SchemeSpec(name=name, arbiter=arbiter, policy=policy, params=frozen)
+    _SCHEME_REGISTRY[name] = spec
+    return spec
+
+
+def register_scheme_family(
+    base: str,
+    factory: Callable[..., Arbiter],
+    variants: Mapping[str, Mapping[str, Any]],
+    *,
+    policy: str = "ltc",
+) -> tuple[SchemeSpec, ...]:
+    """Register ``f"{base}_{suffix}"`` for each variant, with
+    ``factory(**params)`` as its arbiter."""
+    return tuple(
+        register_scheme(f"{base}_{suffix}", factory(**dict(params)),
+                        policy=policy, params=params)
+        for suffix, params in variants.items()
+    )
+
+
+def scheme_spec(name: str) -> SchemeSpec:
+    try:
+        return _SCHEME_REGISTRY[name]
+    except KeyError:
+        for prefix, slice_name in _LATER_SLICES:
+            if name.startswith(prefix):
+                raise NotImplementedError(
+                    f"scheme {name!r} is not ported yet; it arrives with {slice_name}"
+                ) from None
+        raise ValueError(
+            f"unknown scheme {name!r}; registered: {registered_schemes()}"
+        ) from None
+
+
+def registered_schemes() -> tuple[str, ...]:
+    return tuple(_SCHEME_REGISTRY)
+
+
+register_scheme("seq", lambda cfg, tables, spec: sequential_tuning(tables, spec))
+register_scheme(
+    "rs_ssm",
+    lambda cfg, tables, spec: single_step_matching(
+        tables, relation_search(tables, spec, variation_tolerant=False), spec
+    ),
+)
+register_scheme(
+    "vtrs_ssm",
+    lambda cfg, tables, spec: single_step_matching(
+        tables, relation_search(tables, spec, variation_tolerant=True), spec
+    ),
+)
+
+
+def _eval_variations(variations, tr_mean, *, caller: str,
+                     allow_tr: bool = True) -> Variations:
+    """Normalize an evaluator's (tr_mean, variations) inputs."""
+    over = as_variations(variations)
+    if tr_mean is not None:
+        if "tr_mean" in over:
+            raise ValueError(
+                f"{caller}: tr_mean passed both positionally and in variations"
+            )
+        over = over.replace(tr_mean=tr_mean)
+    if not allow_tr and "tr_mean" in over:
+        raise ValueError(
+            f"{caller}: min-TR evaluation solves for the tuning range; "
+            "'tr_mean' cannot be overridden"
+        )
+    return over
+
+
+def oblivious_arbitrate(
+    cfg: ArbitrationConfig,
+    sys: SystemBatch,
+    tr_mean,
+    scheme: str,
+    *,
+    visible=None,
+) -> Assignment:
+    """Run a wavelength-oblivious arbitration scheme on a system batch.
+
+    ``visible`` ((T, N_wl) or (T, N_ring, N_wl) bool) runs the scheme on
+    masked re-search tables — the arbitration a late-joining ring performs
+    while earlier locks have already captured lines.
+    """
+    arbiter = scheme_spec(scheme).arbiter
+    tables = build_search_tables(sys, tr_mean, visible=visible,
+                                 max_alias=cfg.max_fsr_alias)
+    return arbiter(cfg, tables, chain_spec(cfg.s))
+
+
+class EvalResult(NamedTuple):
+    afp: torch.Tensor          # policy-level failure probability (ideal LtC)
+    cafp: torch.Tensor         # conditional algorithmic failure (Eq. 6)
+    lock_err: torch.Tensor     # CAFP portion from zero/dup lock errors
+    order_err: torch.Tensor    # CAFP portion from lane-order errors
+    alg_success: torch.Tensor  # (T,) bool
+    ideal_ok: torch.Tensor     # (T,) bool
+
+
+def evaluate_scheme(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    scheme: str,
+    tr_mean=None,
+    variations: Variations | None = None,
+) -> EvalResult:
+    """Instantiate systems, run the scheme, and score CAFP against the
+    scheme's ideal policy (Eq. 6)."""
+    over = _eval_variations(variations, tr_mean, caller="evaluate_scheme")
+    policy = scheme_spec(scheme).policy
+    tr = over.resolve("tr_mean", cfg)
+    sys = instantiate(cfg, units, over)
+    ideal_ok = ideal.success(sys, policy, cfg.s, tr)
+    assign = oblivious_arbitrate(cfg, sys, tr, scheme)
+    out = classify(assign, cfg.s, policy=policy)
+    lock = (out.zero_lock | out.dup_lock) & ideal_ok
+    order = out.order_err & ideal_ok
+    return EvalResult(
+        afp=metrics.afp(ideal_ok),
+        cafp=metrics.cafp(out.success, ideal_ok),
+        lock_err=torch.mean(lock.to(torch.float32)),
+        order_err=torch.mean(order.to(torch.float32)),
+        alg_success=out.success,
+        ideal_ok=ideal_ok,
+    )
+
+
+def evaluate_policy(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    policy: str,
+    tr_mean=None,
+    variations: Variations | None = None,
+) -> torch.Tensor:
+    """Ideal-model policy evaluation: AFP at a given mean tuning range."""
+    over = _eval_variations(variations, tr_mean, caller="evaluate_policy")
+    tr = over.resolve("tr_mean", cfg)
+    sys = instantiate(cfg, units, over)
+    return metrics.afp(ideal.success(sys, policy, cfg.s, tr))
+
+
+def policy_trial_min_tr(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    policy: str,
+    variations: Variations | None = None,
+) -> torch.Tensor:
+    """(T,) per-trial ideal minimum mean TR at the given variation overrides."""
+    over = _eval_variations(variations, None, caller="policy_min_tr",
+                            allow_tr=False)
+    sys = instantiate(cfg, units, over)
+    return ideal.min_tr(sys, policy, cfg.s)
+
+
+def policy_min_tr(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    policy: str,
+    variations: Variations | None = None,
+) -> torch.Tensor:
+    """Minimum mean TR for complete arbitration success over the batch."""
+    return metrics.min_tr_for_complete_success(
+        policy_trial_min_tr(cfg, units, policy, variations))
+
+
+def make_units(cfg: ArbitrationConfig, seed: int, n_laser: int, n_ring: int,
+               device=None) -> UnitSamples:
+    """Unit samples drawn on the CPU from ``torch.Generator`` seeded with
+    ``seed``, then moved to ``device`` (CUDA unless named): one seed gives the
+    same units on every device."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    units = draw_unit_samples(gen, cfg.grid.n_ch, n_laser, n_ring)
+    return UnitSamples(*(u.to(dev) for u in units))
+

@@ -1,0 +1,49 @@
+"""Ideal, wavelength-aware arbitration models (paper §III-A), LtD and LtC.
+
+These evaluate the *policy* layer: given full wavelength knowledge, can the
+system be arbitrated under LtD / LtC?  Used for AFP and as the conditioning
+event of CAFP.  Each policy exposes a per-trial *minimum mean tuning range*,
+from which success at any TR is a comparison.  The minimum TRs come from the
+``feasibility`` kernel wrapper (its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.feasibility import feasibility, per_shift_min_tr
+from .reach import as_f32
+from .sampling import SystemBatch
+
+_LTA_SLICE = ("policy 'lta' (ideal Lock-to-Any matching) is not ported yet; "
+              "it arrives with the LtA slice of the port")
+
+
+def ltd_min_tr(sys: SystemBatch, s) -> torch.Tensor:
+    """(T,) minimum mean TR for Lock-to-Deterministic success."""
+    return feasibility(*sys, s)[0]
+
+
+def ltc_min_tr(sys: SystemBatch, s) -> torch.Tensor:
+    """(T,) minimum mean TR for Lock-to-Cyclic success (best cyclic shift)."""
+    return feasibility(*sys, s)[1]
+
+
+def ltc_best_shift(sys: SystemBatch, s) -> torch.Tensor:
+    """(T,) argmin cyclic shift c — the wavelength-aware LtC assignment."""
+    return torch.argmin(per_shift_min_tr(*sys, s), dim=0).to(torch.int32)
+
+
+def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
+    """(T,) per-trial minimum mean tuning range for the policy."""
+    if policy == "ltd":
+        return ltd_min_tr(sys, s)
+    if policy == "ltc":
+        return ltc_min_tr(sys, s)
+    if policy == "lta":
+        raise NotImplementedError(_LTA_SLICE)
+    raise ValueError(f"unknown policy {policy!r}")
+
+
+def success(sys: SystemBatch, policy: str, s, tr_mean) -> torch.Tensor:
+    """(T,) bool ideal arbitration success at the given mean tuning range."""
+    return min_tr(sys, policy, s) <= as_f32(tr_mean, sys.laser.device)

@@ -1,0 +1,134 @@
+"""Guards of the PyTorch port (``repro_torch``): its import boundary, its
+device rule, its kernel wrappers' refusal to fall back, and its build flags."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.wdm import WDM8_G200  # noqa: E402
+from repro_torch.convert import units_from_numpy  # noqa: E402
+from repro_torch.core import api, ideal  # noqa: E402
+from repro_torch.core.sampling import SystemBatch  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.feasibility import feasibility  # noqa: E402
+from repro_torch.kernels.table_build import build_tables  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch.core.api, repro_torch.convert, repro_torch.configs.wdm\n"
+        "import repro_torch.kernels._build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_or_repro(path):
+    hits = _FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.make_units(WDM8_G200, 0, 2, 2)
+    arrays = [np.zeros((2, 1), np.float32)] + [np.zeros((2, 8), np.float32)] * 4
+    with pytest.raises(RuntimeError, match="CUDA"):
+        units_from_numpy(*arrays)
+    units = api.make_units(WDM8_G200, 0, 2, 2, device="cpu")
+    assert all(u.device.type == "cpu" for u in units)
+
+
+def test_make_units_same_seed_same_units():
+    a = api.make_units(WDM8_G200, 11, 3, 4, device="cpu")
+    b = api.make_units(WDM8_G200, 11, 3, 4, device="cpu")
+    c = api.make_units(WDM8_G200, 12, 3, 4, device="cpu")
+    assert [tuple(u.shape) for u in a] == [(3, 1), (3, 8), (4, 8), (4, 8), (4, 8)]
+    for x, y in zip(a, b):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+        assert float(x.abs().max()) <= 1.0
+    assert not torch.equal(a.u_llv, c.u_llv)
+
+
+def test_kernel_wrappers_launch_or_raise_off_the_cpu():
+    """A tensor that is not on the CPU never reaches a plain version."""
+    x = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        feasibility(x, x, x, x, np.arange(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        build_tables(x, x, x, x, max_alias=8, max_entries=24)
+    assert feasibility.launches == 0 and build_tables.launches == 0
+
+
+def test_nvcc_command_line_targets_hopper_without_contraction():
+    cmds = _build.compile_commands("nvcc", Path("out"))
+    assert len(cmds) == len(_build.SOURCES) == 2
+    for cmd in cmds + [_build.link_command("nvcc", Path("out"))]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    for cmd in cmds:
+        assert "--fmad=false" in cmd and "-prec-div=true" in cmd
+    assert all((_build.CSRC / s).is_file() for s in _build.SOURCES)
+
+
+def test_build_without_nvcc_raises_clearly(monkeypatch):
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+@pytest.mark.parametrize("name,slice_word", [
+    ("seq_retry", "LtA"), ("seq_retry_r2", "LtA"),
+    ("protocol_lta", "protocol"), ("protocol_ltd", "protocol"),
+])
+def test_later_slice_schemes_raise_with_their_slice(name, slice_word):
+    with pytest.raises(NotImplementedError, match=slice_word):
+        api.scheme_spec(name)
+
+
+def test_unknown_scheme_and_lta_policy():
+    with pytest.raises(ValueError, match="unknown scheme"):
+        api.scheme_spec("nope")
+    sys_ = SystemBatch(*(torch.zeros((2, 4)) for _ in range(4)))
+    with pytest.raises(NotImplementedError, match="LtA"):
+        ideal.min_tr(sys_, "lta", np.arange(4))
+    assert api.registered_schemes() == ("seq", "rs_ssm", "vtrs_ssm")
+
+
+def test_scheme_registry_family_and_duplicates():
+    seq = api.scheme_spec("seq").arbiter
+    specs = api.register_scheme_family(
+        "guardfam", lambda k: seq, {"a": {"k": 1}, "b": {"k": 2}})
+    try:
+        assert [s.name for s in specs] == ["guardfam_a", "guardfam_b"]
+        assert specs[1].params == (("k", 2),)
+        with pytest.raises(ValueError, match="already registered"):
+            api.register_scheme("guardfam_a", seq)
+        with pytest.raises(ValueError, match="policy"):
+            api.register_scheme("guardfam_c", seq, policy="bogus")
+    finally:
+        for s in specs:
+            api._SCHEME_REGISTRY.pop(s.name)
