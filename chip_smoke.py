@@ -6,16 +6,26 @@
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels hold each kernel against its plain PyTorch version (run on the
-           CPU on the same inputs) at the main path's shapes and at edge
-           cases; ``feasibility`` and ``table_build`` must agree bit for bit;
-3. main    drive the paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
+2. kernels hold each kernel against its plain PyTorch version on the same
+           inputs at the main paths' shapes and at edge cases, exactly
+           (float32 bit for bit): ``feasibility`` and ``table_build`` against
+           plain versions run on the CPU, ``match`` and ``bottleneck``
+           against plain versions run on the card (WDM8 to WDM64, random
+           bitmasks with bits 31 and 63 set, tie-heavy integer weights, a
+           ragged 10,007-trial edge);
+3. main    drive each ported path with the launch counts set to 0 just before
+           and read just after, at 100 x 100 = 10,000 trials, TR 8.96:
+           the paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
            vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for ltc and
-           ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural,
-           100 x 100 = 10,000 trials each, with the launch counts set to 0
-           just before and read just after; then hold per-trial ideal and
-           scheme success on a 20 x 20 subset against the CPU plain path,
-           and time the path and each kernel with CUDA events.
+           ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
+           then the LtA path (``evaluate_policy`` and ``policy_min_tr`` for
+           lta at WDM8 natural and permuted, WDM16 and WDM32; the five
+           ``seq_retry*`` schemes at WDM8 natural and permuted and
+           ``seq_retry`` at WDM16 and WDM32); hold per-trial ideal and scheme
+           success and per-trial minimum TRs on a 20 x 20 subset against the
+           CPU plain path, and time every call with CUDA events;
+4. timing  each kernel and its plain version alone at WDM8 and WDM32, beside
+           its bound.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object of the kernels, and the result line
@@ -37,6 +47,14 @@ MAIN_CELLS = (("wdm8-g200", "natural"), ("wdm8-g200", "permuted"),
               ("wdm32-g200", "natural"))
 SCHEMES = ("seq", "rs_ssm", "vtrs_ssm")
 POLICIES = ("ltc", "ltd")
+LTA_POLICY_CELLS = (("wdm8-g200", "natural"), ("wdm8-g200", "permuted"),
+                    ("wdm16-g200", "natural"), ("wdm32-g200", "natural"))
+RETRY_SCHEMES = ("seq_retry", "seq_retry_r1", "seq_retry_r2", "seq_retry_r4",
+                 "seq_retry_phys")
+LTA_SCHEME_CELLS = {("wdm8-g200", "natural"): RETRY_SCHEMES,
+                    ("wdm8-g200", "permuted"): RETRY_SCHEMES,
+                    ("wdm16-g200", "natural"): ("seq_retry",),
+                    ("wdm32-g200", "natural"): ("seq_retry",)}
 N_SIDE = 100                   # 100 lasers x 100 rings = 10,000 trials
 SUB_SIDE = 20                  # CPU-checked subset: 20 x 20 trials
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
@@ -109,6 +127,23 @@ def table_cost(t: int, n: int, e: int, n_j: int, vis_bytes: int = 0) -> tuple[fl
     j * fsr, a subtraction and two window compares per candidate."""
     return (4 * t * n * 4 + vis_bytes + t * n * e * 8 + t * n * 4,
             t * n * n + 4 * t * n * n * n_j)
+
+
+def match_cost(t: int, n: int) -> tuple[float, float]:
+    """Bytes: the adjacency at the function's own size, N bits per ring
+    (ceil(N / 8) bytes; the port's int64 words read more), read; match_wl
+    (T, N) int32 and ok (T,) written.  Operations: the loops every trial runs
+    whatever its graph, the matched-line mask and parent reset of each ring
+    (2N each ring); the BFS beyond them depends on the data and is not
+    counted."""
+    return t * n * -(-n // 8) + t * n * 4 + t, 2 * t * n * n
+
+
+def bottleneck_cost(t: int, n: int) -> tuple[float, float]:
+    """Bytes: (T, N, N) float32 weights read, (T,) written.  Operations: the
+    selection compares, N per step, N steps per ring, N rings (fixed trip
+    counts); the relaxations depend on the data and are not counted."""
+    return t * n * n * 4 + t * 4, t * n * n * n
 
 
 def phase_build():
@@ -191,6 +226,68 @@ def phase_kernels(seed: int) -> dict:
                 compare(f"table_build {key} {name} {tag}", g, w, errs["table_build"])
             print(f"[kernels] table_build {key} {name}: T={t} E={got[0].shape[-1]} "
                   f"exact (n_valid max {int(got[2].max())})")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_matching(seed: int) -> dict:
+    """Phase 2 for ``match`` and ``bottleneck``.  Their plain versions run on
+    the card on the same CUDA inputs: each is a batched search of fixed trip
+    counts (N^2 steps of a few ops for one Kuhn run, ceil(log2 N^2) + 1 runs
+    for the bottleneck), bound by op launch and too slow for the CPU here."""
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.api import make_units
+    from repro_torch.core.matching import adjacency_bitmask
+    from repro_torch.core.reach import reach_matrix, scaled_residual
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.kernels.bitmask_match import (
+        bottleneck_threshold,
+        bottleneck_threshold_plain,
+        perfect_matching,
+        perfect_matching_plain,
+    )
+
+    errs = {"match": [], "bottleneck": []}
+
+    def check_match(name, adj):
+        got, want = perfect_matching(adj), perfect_matching_plain(adj)
+        compare(f"match {name} match_wl", got[0], want[0], errs["match"])
+        compare(f"match {name} ok", got[1], want[1], errs["match"])
+        print(f"[kernels] match {name}: T={adj.shape[0]} N={adj.shape[1]} exact "
+              f"({int(got[1].sum())} perfect, {int((adj < 0).any(dim=1).sum())} "
+              f"trials with bit 63 set)")
+
+    def check_bottleneck(name, w):
+        got, want = bottleneck_threshold(w), bottleneck_threshold_plain(w)
+        compare(f"bottleneck {name}", got, want, errs["bottleneck"])
+        print(f"[kernels] bottleneck {name}: T={w.shape[0]} N={w.shape[1]} "
+              f"bit-exact (max {float(got.max())!r})")
+
+    cells = [
+        ("wdm8 natural", WDM_CONFIGS["wdm8-g200"], N_SIDE, N_SIDE),
+        ("wdm8 permuted", WDM_CONFIGS["wdm8-g200"].with_orders("permuted"),
+         N_SIDE, N_SIDE),
+        ("wdm16", WDM_CONFIGS["wdm16-g200"], N_SIDE, N_SIDE),
+        ("wdm32", WDM_CONFIGS["wdm32-g200"], N_SIDE, N_SIDE),
+        ("wdm64", WDM_CONFIGS["wdm64-g200"], 40, N_SIDE),
+        ("wdm32 ragged", WDM_CONFIGS["wdm32-g200"], 1, 10007),
+    ]
+    for name, cfg, n_l, n_r in cells:
+        sys_ = instantiate(cfg, make_units(cfg, seed, n_l, n_r))
+        for tr in (2.0, 4.5, TR):
+            check_match(f"{name} TR={tr}", adjacency_bitmask(reach_matrix(sys_, tr)))
+        check_bottleneck(f"{name} residual", scaled_residual(sys_))
+
+    gen = torch.Generator().manual_seed(seed)
+    for n in (32, 64):
+        for density in (0.1, 0.3, 0.6):
+            reach = torch.rand(N_SIDE * N_SIDE, n, n, generator=gen) < density
+            reach[:, :, n - 1] |= torch.rand(N_SIDE * N_SIDE, n, generator=gen) < 0.5
+            check_match(f"random density {density}", adjacency_bitmask(reach.cuda()))
+    for n in (12, 32):
+        w = torch.randint(0, 4, (N_SIDE * N_SIDE, n, n), generator=gen)
+        check_bottleneck("tie-heavy integers 0-3", w.to(torch.float32).cuda())
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -279,12 +376,101 @@ def phase_main(seed: int) -> dict:
     return launches
 
 
+def phase_lta(seed: int) -> dict:
+    """The LtA path at 10,000 trials, then its checks and times."""
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api
+    from repro_torch.core.reach import as_f32
+    from repro_torch.kernels.bitmask_match import bottleneck_threshold, perfect_matching
+    from repro_torch.kernels.feasibility import feasibility
+    from repro_torch.kernels.table_build import build_tables
+
+    cells = []
+    for key, order in LTA_POLICY_CELLS:
+        cfg = WDM_CONFIGS[key].with_orders(order)
+        cells.append((f"{key}/{order}", (key, order), cfg,
+                      api.make_units(cfg, seed, N_SIDE, N_SIDE)))
+
+    wrappers = {"feasibility": feasibility, "table_build": build_tables,
+                "match": perfect_matching, "bottleneck": bottleneck_threshold}
+    for w in wrappers.values():
+        w.launches = 0
+    out = {}
+    for name, key, cfg, units in cells:
+        out[name, "afp"] = api.evaluate_policy(cfg, units, "lta", TR)
+        out[name, "min_tr"] = api.policy_min_tr(cfg, units, "lta")
+        for scheme in LTA_SCHEME_CELLS[key]:
+            out[name, scheme] = api.evaluate_scheme(cfg, units, scheme, TR)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[lta] launches on the LtA path: {launches}")
+    for k in ("match", "bottleneck", "table_build"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the LtA path")
+
+    t = N_SIDE * N_SIDE
+    for name, key, cfg, units in cells:
+        sub_units, idx = _subset(units, SUB_SIDE)
+        afp, mtr = float(out[name, "afp"]), float(out[name, "min_tr"])
+        if not (0.0 <= afp <= 1.0 and mtr == mtr and mtr >= 0.0):
+            fail(f"{name} lta: AFP={afp} min_tr={mtr}")
+        per_trial = api.policy_trial_min_tr(cfg, units, "lta")
+        if per_trial.shape != (t,) or not bool(torch.isfinite(per_trial).all()):
+            fail(f"{name} lta per-trial min TR: {tuple(per_trial.shape)}, not all finite")
+        ref = api.policy_trial_min_tr(cfg, sub_units, "lta")
+        if not torch.equal(bits(per_trial.cpu()[idx]), bits(ref)):
+            fail(f"{name} lta per-trial min TR differs from the CPU plain path")
+        print(f"[lta] {name} policy lta: AFP={afp!r} min_tr={mtr!r} (per-trial "
+              f"min TR on the {SUB_SIDE}x{SUB_SIDE} subset equal to the CPU plain path)")
+        for scheme in LTA_SCHEME_CELLS[key]:
+            r = out[name, scheme]
+            for f in ("alg_success", "ideal_ok"):
+                v = getattr(r, f)
+                if v.shape != (t,) or v.dtype != torch.bool:
+                    fail(f"{name} {scheme} {f}: {v.dtype}{tuple(v.shape)}")
+            for f in ("afp", "cafp", "lock_err", "order_err"):
+                x = float(getattr(r, f))
+                if not 0.0 <= x <= 1.0:
+                    fail(f"{name} {scheme} {f} = {x} outside [0, 1]")
+            if not torch.equal(r.ideal_ok, per_trial <= as_f32(TR, per_trial.device)):
+                fail(f"{name} {scheme} ideal_ok (match) disagrees with the "
+                     f"bottleneck min TR at TR {TR}")
+            ref = api.evaluate_scheme(cfg, sub_units, scheme, TR)
+            for f in ("alg_success", "ideal_ok"):
+                if not torch.equal(getattr(r, f).cpu()[idx], getattr(ref, f)):
+                    fail(f"{name} {scheme} {f} differs from the CPU plain path "
+                         f"on the {SUB_SIDE}x{SUB_SIDE} subset")
+            print(f"[lta] {name} {scheme}: AFP={float(r.afp)!r} CAFP={float(r.cafp)!r} "
+                  f"lock_err={float(r.lock_err)!r} (subset of {len(idx)} trials "
+                  f"equal to the CPU plain path)")
+
+    for name, key, cfg, units in cells:
+        ms = cuda_ms(lambda: api.evaluate_policy(cfg, units, "lta", TR), 10)
+        print(f"[time] evaluate_policy {name} lta: {ms!r} ms/call")
+        ms = cuda_ms(lambda: api.policy_min_tr(cfg, units, "lta"), 10)
+        print(f"[time] policy_min_tr {name} lta: {ms!r} ms/call")
+        for scheme in LTA_SCHEME_CELLS[key]:
+            reps = 2 if cfg.grid.n_ch >= 32 else 5
+            ms = cuda_ms(lambda: api.evaluate_scheme(cfg, units, scheme, TR), reps)
+            print(f"[time] evaluate_scheme {name} {scheme}: {ms!r} ms/call ({t} trials)")
+    return launches
+
+
 def phase_timing(seed: int) -> dict:
     """Kernel and plain-version times on the card at the main path's shapes."""
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core.api import make_units
-    from repro_torch.core.reach import as_f32
+    from repro_torch.core.matching import adjacency_bitmask
+    from repro_torch.core.reach import as_f32, reach_matrix, scaled_residual
     from repro_torch.core.sampling import instantiate
+    from repro_torch.kernels.bitmask_match import (
+        bottleneck_threshold,
+        bottleneck_threshold_plain,
+        perfect_matching,
+        perfect_matching_plain,
+    )
     from repro_torch.kernels.feasibility import feasibility, feasibility_plain
     from repro_torch.kernels.table_build import build_tables, build_tables_plain
 
@@ -304,7 +490,16 @@ def phase_timing(seed: int) -> dict:
         table = (cuda_ms(lambda: build_tables(*args, **kw), 20),
                  cuda_ms(lambda: build_tables_plain(*args, **kw), 3),
                  *bound_ms(*table_cost(t, n, min(3 * n, n * n_j), n_j)))
-        for kname, (ms, plain, bound, by) in (("feasibility", feas), ("table_build", table)):
+        adj = adjacency_bitmask(reach_matrix(sys_, TR))
+        match = (cuda_ms(lambda: perfect_matching(adj), 20),
+                 cuda_ms(lambda: perfect_matching_plain(adj), 2),
+                 *bound_ms(*match_cost(t, n)))
+        w = scaled_residual(sys_)
+        bneck = (cuda_ms(lambda: bottleneck_threshold(w), 20),
+                 cuda_ms(lambda: bottleneck_threshold_plain(w), 1),
+                 *bound_ms(*bottleneck_cost(t, n)))
+        for kname, (ms, plain, bound, by) in (("feasibility", feas), ("table_build", table),
+                                              ("match", match), ("bottleneck", bneck)):
             print(f"[time] {kname} {key} T={t}: kernel {ms!r} ms, plain {plain!r} ms, "
                   f"bound {bound!r} ms ({by})")
             rows[kname, key] = (ms, plain, bound, by)
@@ -326,10 +521,15 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()
     phase_build()
     max_err = phase_kernels(args.seed)
+    max_err.update(phase_matching(args.seed))
     launches = phase_main(args.seed)
+    lta_launches = phase_lta(args.seed)
+    launches.update(match=lta_launches["match"], bottleneck=lta_launches["bottleneck"])
     rows = phase_timing(args.seed)
+    print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -341,6 +541,10 @@ def main() -> int:
          "src/repro/kernels/feasibility.py:28"),
         ("table_build", "src/repro_torch/kernels/csrc/table_build.cu",
          "src/repro/kernels/table_build.py:108"),
+        ("match", "src/repro_torch/kernels/csrc/match.cu",
+         "src/repro/kernels/bitmask_match.py:52"),
+        ("bottleneck", "src/repro_torch/kernels/csrc/bottleneck.cu",
+         "src/repro/kernels/bitmask_match.py:125"),
     ):
         ms, plain, bound, by = rows[kname, "wdm32-g200"]
         kernels.append({

@@ -1,7 +1,8 @@
 """Carry the reference package's inputs across as plain numbers.
 
 The parity tests draw unit samples with the reference (JAX threefry draws
-are not reproduced here) and hand the same float32 arrays to both packages.
+are not reproduced here) and hand the same float32 arrays to both packages;
+they can also hand the reference's search tables to both packages' arbiters.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from .core.grid import ArbitrationConfig, DWDMGrid, VariationModel
 from .core.sampling import UnitSamples, resolve_device
+from .core.search_table import SearchTables
 
 
 def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
@@ -34,4 +36,15 @@ def config_from_fields(grid: Mapping, var: Mapping, r_order: Sequence[int],
         r_order=tuple(int(v) for v in r_order),
         s_order=tuple(int(v) for v in s_order),
         max_fsr_alias=int(max_fsr_alias),
+    )
+
+
+def tables_from_numpy(delta, wl, n_valid, device=None) -> SearchTables:
+    """``SearchTables`` from the reference's (delta, wl, n_valid) arrays, so
+    both packages' arbiters can read the same tables."""
+    dev = resolve_device(device)
+    return SearchTables(
+        delta=torch.tensor(np.asarray(delta, dtype=np.float32)).to(dev),
+        wl=torch.tensor(np.asarray(wl, dtype=np.int32)).to(dev),
+        n_valid=torch.tensor(np.asarray(n_valid, dtype=np.int32)).to(dev),
     )

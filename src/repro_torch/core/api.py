@@ -11,8 +11,9 @@ selects the path: CUDA tensors go through the hand-written kernels, CPU
 tensors through their plain PyTorch versions.
 
 Schemes are pluggable: ``register_scheme`` adds a wavelength-oblivious
-arbiter, ``register_scheme_family`` stamps out parametrized variants.  This
-slice registers the LtC schemes ``seq``, ``rs_ssm`` and ``vtrs_ssm``.
+arbiter, ``register_scheme_family`` stamps out parametrized variants.  The
+port registers the LtC schemes ``seq``, ``rs_ssm`` and ``vtrs_ssm`` and the
+beyond-paper LtA arbiter ``seq_retry`` with its retry-budget family.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from . import ideal, metrics
 from .grid import ArbitrationConfig
+from .lta_retry import sequential_retry
 from .outcomes import classify
 from .relation import chain_spec, relation_search
 from .sampling import (SystemBatch, UnitSamples, draw_unit_samples, instantiate,
@@ -37,7 +39,6 @@ Arbiter = Callable[..., Assignment]
 
 #: Reference schemes whose machinery later slices of the port bring.
 _LATER_SLICES = (
-    ("seq_retry", "the LtA slice (ideal Lock-to-Any and seq_retry)"),
     ("protocol_", "the protocol-engine slice"),
 )
 
@@ -129,6 +130,36 @@ register_scheme(
 )
 
 
+def make_seq_retry(n_rounds: int | None = None,
+                   constrained_first: bool = True) -> Arbiter:
+    """Factory for retry-budgeted oblivious LtA arbiters (§V-E future work).
+
+    ``n_rounds`` caps the conflict-retry sweeps (None = N_ch, enough for
+    convergence); ``constrained_first`` picks the lock order.
+    """
+    def arbiter(cfg, tables, spec):
+        return sequential_retry(
+            tables, n_rounds=n_rounds, constrained_first=constrained_first
+        )
+    return arbiter
+
+
+# Beyond-paper oblivious LtA: the full-budget arbiter plus a retry-budget
+# family for the budget/CAFP trade-off study (fig17).
+register_scheme("seq_retry", make_seq_retry(), policy="lta")
+register_scheme_family(
+    "seq_retry",
+    make_seq_retry,
+    {
+        "r1": {"n_rounds": 1},
+        "r2": {"n_rounds": 2},
+        "r4": {"n_rounds": 4},
+        "phys": {"n_rounds": None, "constrained_first": False},
+    },
+    policy="lta",
+)
+
+
 def _eval_variations(variations, tr_mean, *, caller: str,
                      allow_tr: bool = True) -> Variations:
     """Normalize an evaluator's (tr_mean, variations) inputs."""
@@ -168,7 +199,7 @@ def oblivious_arbitrate(
 
 
 class EvalResult(NamedTuple):
-    afp: torch.Tensor          # policy-level failure probability (ideal LtC)
+    afp: torch.Tensor          # policy-level failure probability (ideal policy)
     cafp: torch.Tensor         # conditional algorithmic failure (Eq. 6)
     lock_err: torch.Tensor     # CAFP portion from zero/dup lock errors
     order_err: torch.Tensor    # CAFP portion from lane-order errors

@@ -1,21 +1,22 @@
-"""Ideal, wavelength-aware arbitration models (paper §III-A), LtD and LtC.
+"""Ideal, wavelength-aware arbitration models (paper §III-A).
 
 These evaluate the *policy* layer: given full wavelength knowledge, can the
-system be arbitrated under LtD / LtC?  Used for AFP and as the conditioning
-event of CAFP.  Each policy exposes a per-trial *minimum mean tuning range*,
-from which success at any TR is a comparison.  The minimum TRs come from the
-``feasibility`` kernel wrapper (its plain version on the CPU).
+system be arbitrated under LtD / LtC / LtA?  Used for AFP and as the
+conditioning event of CAFP.  Each policy exposes a per-trial *minimum mean
+tuning range*, from which success at any TR is a comparison.  LtD/LtC come
+from the ``feasibility`` kernel wrapper, the LtA minimum TR from the
+``bottleneck`` wrapper and LtA success from the ``match`` wrapper (each its
+plain version on the CPU).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.bitmask_match import bottleneck_threshold
 from ..kernels.feasibility import feasibility, per_shift_min_tr
-from .reach import as_f32
+from .matching import has_perfect_matching
+from .reach import as_f32, reach_matrix, scaled_residual
 from .sampling import SystemBatch
-
-_LTA_SLICE = ("policy 'lta' (ideal Lock-to-Any matching) is not ported yet; "
-              "it arrives with the LtA slice of the port")
 
 
 def ltd_min_tr(sys: SystemBatch, s) -> torch.Tensor:
@@ -33,6 +34,11 @@ def ltc_best_shift(sys: SystemBatch, s) -> torch.Tensor:
     return torch.argmin(per_shift_min_tr(*sys, s), dim=0).to(torch.int32)
 
 
+def lta_min_tr(sys: SystemBatch) -> torch.Tensor:
+    """(T,) minimum mean TR for Lock-to-Any success (bottleneck matching)."""
+    return bottleneck_threshold(scaled_residual(sys))
+
+
 def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
     """(T,) per-trial minimum mean tuning range for the policy."""
     if policy == "ltd":
@@ -40,10 +46,12 @@ def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
     if policy == "ltc":
         return ltc_min_tr(sys, s)
     if policy == "lta":
-        raise NotImplementedError(_LTA_SLICE)
+        return lta_min_tr(sys)
     raise ValueError(f"unknown policy {policy!r}")
 
 
 def success(sys: SystemBatch, policy: str, s, tr_mean) -> torch.Tensor:
     """(T,) bool ideal arbitration success at the given mean tuning range."""
+    if policy == "lta":
+        return has_perfect_matching(reach_matrix(sys, tr_mean))
     return min_tr(sys, policy, s) <= as_f32(tr_mean, sys.laser.device)

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("feasibility.cu", "table_build.cu")
+SOURCES = ("feasibility.cu", "table_build.cu", "match.cu", "bottleneck.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 
@@ -126,25 +126,33 @@ def library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P, _P,
     ]
     lib.table_build_launch.restype = _I
+    lib.match_launch.argtypes = [_P, _I, _I, _P, _P, _P]
+    lib.match_launch.restype = _I
+    lib.bottleneck_launch.argtypes = [_P, _I, _I, _P, _P]
+    lib.bottleneck_launch.restype = _I
     return lib
 
 
-def check_inputs(name: str, args, max_n: int) -> tuple[int, int]:
-    """Validate a wrapper's (T, N) inputs: one CUDA device, float32, one
-    shape, contiguous, 1 <= N <= max_n.  Returns (T, N)."""
+def check_inputs(name: str, args, max_n: int, dtype=torch.float32,
+                 square: bool = False) -> tuple[int, int]:
+    """Validate a wrapper's (T, N) inputs, or (T, N, N) ones if ``square``:
+    one CUDA device, one dtype, one shape, contiguous, 1 <= N <= max_n.
+    Returns (T, N)."""
     shape, dev = args[0].shape, args[0].device
+    if len(shape) >= 2 and not 1 <= shape[1] <= max_n:
+        raise ValueError(f"{name}: N must be in [1, {max_n}], got {shape[1]}")
     for a in args:
         if a.device.type != "cuda" or a.device != dev:
             raise ValueError(f"{name}: all inputs must lie on one CUDA device")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got {a.dtype}")
-        if a.dim() != 2 or a.shape != shape:
-            raise ValueError(f"{name}: inputs must share one (T, N) shape, got "
+        if a.dtype != dtype:
+            raise TypeError(f"{name}: inputs must be {dtype}, got {a.dtype}")
+        if a.dim() != (3 if square else 2) or a.shape != shape \
+                or (square and shape[2] != shape[1]):
+            want = "(T, N, N)" if square else "(T, N)"
+            raise ValueError(f"{name}: inputs must share one {want} shape, got "
                              f"{[tuple(x.shape) for x in args]}")
         if not a.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if not 1 <= shape[1] <= max_n:
-        raise ValueError(f"{name}: N must be in [1, {max_n}], got {shape[1]}")
     return shape[0], shape[1]
 
 

@@ -16,6 +16,10 @@ from repro_torch.convert import units_from_numpy  # noqa: E402
 from repro_torch.core import api, ideal  # noqa: E402
 from repro_torch.core.sampling import SystemBatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bitmask_match import (  # noqa: E402
+    bottleneck_threshold,
+    perfect_matching,
+)
 from repro_torch.kernels.feasibility import feasibility  # noqa: E402
 from repro_torch.kernels.table_build import build_tables  # noqa: E402
 
@@ -75,12 +79,27 @@ def test_kernel_wrappers_launch_or_raise_off_the_cpu():
         feasibility(x, x, x, x, np.arange(8))
     with pytest.raises(ValueError, match="CUDA"):
         build_tables(x, x, x, x, max_alias=8, max_entries=24)
+    with pytest.raises(ValueError, match="CUDA"):
+        perfect_matching(torch.empty((4, 8), dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        bottleneck_threshold(torch.empty((4, 8, 8), device="meta"))
     assert feasibility.launches == 0 and build_tables.launches == 0
+    assert perfect_matching.launches == 0 and bottleneck_threshold.launches == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_matching_wrappers_refuse_more_than_64_lines(device):
+    """N = 65 lines do not fit the kernels' one 64-bit word per ring."""
+    with pytest.raises(ValueError, match=r"N must be in \[1, 64\]"):
+        perfect_matching(torch.zeros((2, 65), dtype=torch.int64, device=device))
+    with pytest.raises(ValueError, match=r"N must be in \[1, 64\]"):
+        bottleneck_threshold(torch.zeros((2, 65, 65), device=device))
+    assert perfect_matching.launches == 0 and bottleneck_threshold.launches == 0
 
 
 def test_nvcc_command_line_targets_hopper_without_contraction():
     cmds = _build.compile_commands("nvcc", Path("out"))
-    assert len(cmds) == len(_build.SOURCES) == 2
+    assert len(cmds) == len(_build.SOURCES) == 4
     for cmd in cmds + [_build.link_command("nvcc", Path("out"))]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
@@ -101,10 +120,14 @@ def test_build_without_nvcc_raises_clearly(monkeypatch):
 
 
 @pytest.mark.parametrize("name,slice_word", [
-    ("seq_retry", "LtA"), ("seq_retry_r2", "LtA"),
+    ("seq_retry", None), ("seq_retry_r2", None),
     ("protocol_lta", "protocol"), ("protocol_ltd", "protocol"),
 ])
 def test_later_slice_schemes_raise_with_their_slice(name, slice_word):
+    """The LtA slice registers seq_retry*; protocol schemes still raise."""
+    if slice_word is None:
+        assert api.scheme_spec(name).policy == "lta"
+        return
     with pytest.raises(NotImplementedError, match=slice_word):
         api.scheme_spec(name)
 
@@ -112,10 +135,12 @@ def test_later_slice_schemes_raise_with_their_slice(name, slice_word):
 def test_unknown_scheme_and_lta_policy():
     with pytest.raises(ValueError, match="unknown scheme"):
         api.scheme_spec("nope")
-    sys_ = SystemBatch(*(torch.zeros((2, 4)) for _ in range(4)))
-    with pytest.raises(NotImplementedError, match="LtA"):
-        ideal.min_tr(sys_, "lta", np.arange(4))
-    assert api.registered_schemes() == ("seq", "rs_ssm", "vtrs_ssm")
+    sys_ = SystemBatch(*(torch.ones((2, 4)) for _ in range(4)))
+    lta = ideal.min_tr(sys_, "lta", np.arange(4))
+    assert lta.shape == (2,) and lta.dtype == torch.float32
+    assert api.registered_schemes() == (
+        "seq", "rs_ssm", "vtrs_ssm", "seq_retry", "seq_retry_r1",
+        "seq_retry_r2", "seq_retry_r4", "seq_retry_phys")
 
 
 def test_scheme_registry_family_and_duplicates():
