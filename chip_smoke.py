@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--profile]
 
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
-1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels hold each kernel against its plain PyTorch version on the same
-           inputs at the main paths' shapes and at edge cases, exactly
-           (float32 bit for bit): ``feasibility`` and ``table_build`` against
-           plain versions run on the CPU, ``match`` and ``bottleneck``
-           against plain versions run on the card (WDM8 to WDM64, random
-           bitmasks with bits 31 and 63 set, tie-heavy integer weights, a
-           ragged 10,007-trial edge);
-3. main    drive each ported path with the launch counts set to 0 just before
-           and read just after, at 100 x 100 = 10,000 trials, TR 8.96:
-           the paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
-           vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for ltc and
-           ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
-           then the LtA path (``evaluate_policy`` and ``policy_min_tr`` for
-           lta at WDM8 natural and permuted, WDM16 and WDM32; the five
-           ``seq_retry*`` schemes at WDM8 natural and permuted and
-           ``seq_retry`` at WDM16 and WDM32); hold per-trial ideal and scheme
-           success and per-trial minimum TRs on a 20 x 20 subset against the
-           CPU plain path, and time every call with CUDA events;
-4. timing  each kernel and its plain version alone at WDM8 and WDM32, beside
-           its bound.
+1. build    compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. kernels  hold each kernel against its plain PyTorch version on the same
+            inputs at the main paths' shapes and at edge cases, exactly
+            (float32 bit for bit): ``feasibility`` and ``table_build``
+            against plain versions run on the CPU, ``match``, ``bottleneck``
+            and ``probe`` against plain versions run on the card (WDM8 to
+            WDM64, random bitmasks with bits 31 and 63 set, tie-heavy integer
+            weights, a ragged 10,007-trial edge; for ``probe`` C = 1 and 4
+            rows, floors -1, 0, E and E + 3, line ids >= L, all-taken and
+            all-invalid rows, and every re-search of the first two rounds of
+            a WDM16 protocol run);
+3. main     drive each ported path with the launch counts set to 0 just
+            before and read just after, at 100 x 100 = 10,000 trials: the
+            paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
+            vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for ltc and
+            ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
+            the LtA path (``evaluate_policy`` and ``policy_min_tr`` for lta
+            at WDM8 natural and permuted, WDM16 and WDM32; the five
+            ``seq_retry*`` schemes at WDM8 natural and permuted and
+            ``seq_retry`` at WDM16 and WDM32), at TR 8.96; the protocol path
+            (the five ``protocol_*`` schemes at WDM8 natural and permuted at
+            TR 8.96 and at fig19's TR 3.436, ``protocol_lta`` at WDM16 and
+            WDM32, ``run_protocol`` with stats for the depth ladder 1, 2, 4,
+            None at WDM8); and the temporal path (``run_timeline`` warm and
+            cold on the wdm16-thermal and wdm16-hotswap drift scenarios at
+            TR = 4 x grid spacing).  Per-trial results on a 20 x 20 subset are
+            held against the CPU plain path, and every call is timed;
+4. timing   each kernel and its plain version alone at WDM8 and WDM32,
+            beside its bound: the kernel's device time per launch from a
+            ``torch.profiler`` trace, the wrapper's time per call from CUDA
+            events over back-to-back calls (which holds the host's cost of
+            issuing each call), and the plain version's time per call.
+
+``--profile`` runs the build and then, in place of phases 2 to 4, traces
+protocol calls with ``torch.profiler`` to show where their time goes (see
+``phase_profile``); it prints no kernels or result line.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object of the kernels, and the result line
@@ -55,6 +70,12 @@ LTA_SCHEME_CELLS = {("wdm8-g200", "natural"): RETRY_SCHEMES,
                     ("wdm8-g200", "permuted"): RETRY_SCHEMES,
                     ("wdm16-g200", "natural"): ("seq_retry",),
                     ("wdm32-g200", "natural"): ("seq_retry",)}
+PROTOCOL_SCHEMES = ("protocol_lta", "protocol_lta_h1", "protocol_lta_h2",
+                    "protocol_lta_h4", "protocol_ltd")
+PROTOCOL_ORDERS = ("natural", "permuted")
+DEPTHS = (1, 2, 4, None)       # fig19's chain-depth ladder (None = N hops)
+DRIFT_CELLS = ("wdm16-thermal", "wdm16-hotswap")
+TEMPORAL_TR_X = 4.0            # fig20's operating point, in grid spacings
 N_SIDE = 100                   # 100 lasers x 100 rings = 10,000 trials
 SUB_SIDE = 20                  # CPU-checked subset: 20 x 20 trials
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
@@ -109,6 +130,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device milliseconds per launch of the kernel named ``kernel`` over
+    ``reps`` calls of ``fn`` after one warm-up, from a ``torch.profiler``
+    trace: the kernel's own time, without the host's cost of issuing it.
+    The mean is over the launches the trace holds (it can miss one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if count < reps // 2:
+        fail(f"the profiler traced {count} launches of {kernel} in {reps} calls")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_PER_S * 1e3
@@ -144,6 +187,64 @@ def bottleneck_cost(t: int, n: int) -> tuple[float, float]:
     selection compares, N per step, N steps per ring, N rings (fixed trip
     counts); the relaxations depend on the data and are not counted."""
     return t * n * n * 4 + t * 4, t * n * n * n
+
+
+def probe_cost(wl, taken, floor, first, found) -> tuple[float, float, float]:
+    """Bytes and operations of a first-visible search on this run's data.
+    Bytes: of each row, the 32-byte sectors from its floor to its first
+    visible entry (to its end if none is; none if the floor is past it), the
+    trial's taken mask (L bytes) and floors (C * 4) read; first (C * 4) and
+    found (C) written.  Operations: three integer compares per scanned entry.
+    Third: the bytes with whole rows (T * C * E * 4) read in place of the
+    sectors, for comparison."""
+    import torch
+
+    t, c, e = wl.shape
+    start = floor.long().clamp(min=0)
+    end = torch.where(found, first.long(), torch.full_like(start, e - 1))
+    idx = torch.arange(e, device=wl.device)
+    read = ((idx >= start[..., None]) & (idx <= end[..., None])).reshape(-1)
+    read = torch.nn.functional.pad(read, (0, -read.numel() % 8))
+    sectors = int(read.reshape(-1, 8).any(dim=1).sum())   # 8 int32 per sector
+    fixed = t * (taken.shape[1] + c * 4) + t * c * 5
+    return 32 * sectors + fixed, 3 * int(read.sum()), t * c * e * 4 + fixed
+
+
+def low_tr() -> float:
+    """fig19's TR point 4 (the paper's sweep 0.25 .. 8 grid spacings, 12
+    points, float32): 3.436 nm, where seq_retry leaves residual CAFP."""
+    import numpy as np
+
+    return float(np.linspace(0.25 * 1.12, 8 * 1.12, 12).astype(np.float32)[4])
+
+
+def timed_call(fn):
+    """(result, wall ms, ``probe`` launches) of one call, synchronised on
+    both ends."""
+    import torch
+
+    from repro_torch.kernels.probe import masked_research
+
+    torch.cuda.synchronize()
+    n0, t0 = masked_research.launches, time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, masked_research.launches - n0
+
+
+def reset_launches() -> dict:
+    """Every kernel wrapper, its launch count set to 0."""
+    from repro_torch.kernels.bitmask_match import bottleneck_threshold, perfect_matching
+    from repro_torch.kernels.feasibility import feasibility
+    from repro_torch.kernels.probe import masked_research
+    from repro_torch.kernels.table_build import build_tables
+
+    wrappers = {"feasibility": feasibility, "table_build": build_tables,
+                "match": perfect_matching, "bottleneck": bottleneck_threshold,
+                "probe": masked_research}
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
 
 
 def phase_build():
@@ -291,6 +392,80 @@ def phase_matching(seed: int) -> dict:
     return {k: max(v) for k, v in errs.items()}
 
 
+def phase_probe(seed: int) -> dict:
+    """Phase 2 for ``probe``: the kernel against its plain version on the same
+    CUDA inputs, exactly, at every shape the protocol engine gives it, at
+    edge cases, and on every re-search of a real protocol run."""
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import protocol as proto
+    from repro_torch.core.api import make_units
+    from repro_torch.core.relation import chain_spec
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.core.search_table import build_search_tables
+    from repro_torch.kernels.probe import masked_research, masked_research_plain
+
+    errs = []
+
+    def check(name, wl, taken, floor, quiet=False):
+        got = masked_research(wl, taken, floor)
+        want = masked_research_plain(wl, taken, floor)
+        compare(f"probe {name} first", got[0], want[0], errs)
+        compare(f"probe {name} found", got[1], want[1], errs)
+        if not quiet:
+            print(f"[kernels] probe {name}: T={wl.shape[0]} C={wl.shape[1]} "
+                  f"E={wl.shape[2]} L={taken.shape[1]} exact "
+                  f"({int(got[1].sum())} of {got[1].numel()} rows found)")
+        return got
+
+    gen = torch.Generator().manual_seed(seed)
+    for n in (8, 16, 32, 64):
+        e = 3 * n
+        for c in (1, 4):
+            for t in (N_SIDE * N_SIDE,) + ((10007,) if n == 32 else ()):
+                wl = torch.randint(-1, n, (t, c, e), generator=gen, dtype=torch.int32)
+                taken = torch.rand(t, n, generator=gen) < 0.5
+                floor = torch.randint(0, e + 1, (t, c), generator=gen, dtype=torch.int32)
+                check(f"random N={n}", wl.cuda(), taken.cuda(), floor.cuda())
+
+    # Edge cases: floors -1, 0, E, E + 3 in rows 0..3; line ids up to L + 3
+    # (never taken); row 1 all invalid; every 7th trial has every line taken.
+    t, n, e = 10007, 16, 48
+    wl = torch.randint(-1, n + 4, (t, 4, e), generator=gen, dtype=torch.int32)
+    wl[:, 1] = -1
+    taken = torch.rand(t, n, generator=gen) < 0.5
+    taken[::7] = True
+    floor = torch.tensor([-1, 0, e, e + 3], dtype=torch.int32).repeat(t, 1)
+    first, found = check("edge cases", wl.cuda(), taken.cuda(), floor.cuda())
+    if bool(found[:, 1:].any()) or not bool(found[:, 0].any()):
+        fail("probe edge cases: wrong found pattern")
+
+    # Every re-search of the first two rounds of a WDM16 protocol run.
+    cfg = WDM_CONFIGS["wdm16-g200"]
+    sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
+    tables = build_search_tables(sys_, TEMPORAL_TR_X * cfg.grid.grid_spacing,
+                                 max_alias=cfg.max_fsr_alias)
+    calls = []
+    real = proto.masked_research
+
+    def checked(wl, taken, floor):
+        calls.append(wl.shape[1])
+        return check(f"protocol call {len(calls)}", wl, taken, floor, quiet=True)
+
+    proto.masked_research = checked
+    try:
+        proto.run_protocol(tables, chain_spec(cfg.s), n_rounds=2)
+    finally:
+        proto.masked_research = real
+    print(f"[kernels] probe: {len(calls)} re-searches of 2 rounds of a WDM16 protocol "
+          f"run (T={sys_.n_trials}; {calls.count(1)} with C=1, {calls.count(4)} with "
+          f"C=4) exact")
+    if not calls:
+        fail("probe: the protocol run made no re-search")
+    return {"probe": max(errs)}
+
+
 def _subset(units, side):
     """The first side x side samples on the CPU, and their trial indices."""
     import numpy as np
@@ -383,9 +558,6 @@ def phase_lta(seed: int) -> dict:
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core import api
     from repro_torch.core.reach import as_f32
-    from repro_torch.kernels.bitmask_match import bottleneck_threshold, perfect_matching
-    from repro_torch.kernels.feasibility import feasibility
-    from repro_torch.kernels.table_build import build_tables
 
     cells = []
     for key, order in LTA_POLICY_CELLS:
@@ -393,10 +565,7 @@ def phase_lta(seed: int) -> dict:
         cells.append((f"{key}/{order}", (key, order), cfg,
                       api.make_units(cfg, seed, N_SIDE, N_SIDE)))
 
-    wrappers = {"feasibility": feasibility, "table_build": build_tables,
-                "match": perfect_matching, "bottleneck": bottleneck_threshold}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = reset_launches()
     out = {}
     for name, key, cfg, units in cells:
         out[name, "afp"] = api.evaluate_policy(cfg, units, "lta", TR)
@@ -458,8 +627,178 @@ def phase_lta(seed: int) -> dict:
     return launches
 
 
+def _check_eval(name, r, t):
+    import torch
+
+    for f in ("alg_success", "ideal_ok"):
+        v = getattr(r, f)
+        if v.shape != (t,) or v.dtype != torch.bool:
+            fail(f"{name} {f}: {v.dtype}{tuple(v.shape)}")
+    for f in ("afp", "cafp", "lock_err", "order_err"):
+        x = float(getattr(r, f))
+        if not 0.0 <= x <= 1.0:
+            fail(f"{name} {f} = {x} outside [0, 1]")
+    if bool((r.alg_success & ~r.ideal_ok).any()):
+        fail(f"{name}: protocol success on a trial the ideal arbiter fails")
+
+
+def phase_protocol(seed: int) -> dict:
+    """The protocol path at 10,000 trials, then its checks."""
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api, ideal, metrics
+    from repro_torch.core.outcomes import classify
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.core.relation import chain_spec
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.core.search_table import build_search_tables
+
+    low = low_tr()
+    cells = []
+    for order in PROTOCOL_ORDERS:
+        cfg = WDM_CONFIGS["wdm8-g200"].with_orders(order)
+        for tr in (TR, low):
+            cells.append((f"wdm8-g200/{order} TR={tr!r}", cfg, tr, PROTOCOL_SCHEMES))
+    for key in ("wdm16-g200", "wdm32-g200"):
+        cells.append((f"{key}/natural TR={TR!r}", WDM_CONFIGS[key], TR, ("protocol_lta",)))
+    units = {}
+    for _, cfg, _, _ in cells:
+        if cfg not in units:
+            units[cfg] = api.make_units(cfg, seed, N_SIDE, N_SIDE)
+    ladder_cfg = WDM_CONFIGS["wdm8-g200"]
+    ladder_trs = (TR, low)
+
+    wrappers = reset_launches()
+    out, ms, n_probe = {}, {}, {}
+    for name, cfg, tr, schemes in cells:
+        for scheme in schemes:
+            out[name, scheme], ms[name, scheme], n_probe[name, scheme] = timed_call(
+                lambda: api.evaluate_scheme(cfg, units[cfg], scheme, tr))
+    ladder_sys = instantiate(ladder_cfg, units[ladder_cfg])
+    spec = chain_spec(ladder_cfg.s)
+    for tr in ladder_trs:
+        tables = build_search_tables(ladder_sys, tr, max_alias=ladder_cfg.max_fsr_alias)
+        for depth in DEPTHS:
+            key = "ladder", tr, depth
+            out[key], ms[key], n_probe[key] = timed_call(
+                lambda: run_protocol(tables, spec, depth=depth, with_stats=True))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[protocol] launches on the protocol path: {launches}")
+    for k in ("probe", "table_build", "match", "feasibility"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the protocol path")
+
+    t = N_SIDE * N_SIDE
+    for name, cfg, tr, schemes in cells:
+        sub_units, idx = _subset(units[cfg], SUB_SIDE)
+        for scheme in schemes:
+            r = out[name, scheme]
+            _check_eval(f"{name} {scheme}", r, t)
+            ref = api.evaluate_scheme(cfg, sub_units, scheme, tr)
+            for f in ("alg_success", "ideal_ok"):
+                if not torch.equal(getattr(r, f).cpu()[idx], getattr(ref, f)):
+                    fail(f"{name} {scheme} {f} differs from the CPU plain path "
+                         f"on the {SUB_SIDE}x{SUB_SIDE} subset")
+            print(f"[protocol] {name} {scheme}: AFP={float(r.afp)!r} "
+                  f"CAFP={float(r.cafp)!r} lock_err={float(r.lock_err)!r} "
+                  f"order_err={float(r.order_err)!r} {ms[name, scheme]!r} ms/call, "
+                  f"{n_probe[name, scheme]} probe launches "
+                  f"(subset of {len(idx)} trials equal to the CPU plain path)")
+
+    sub_units, idx = _subset(units[ladder_cfg], SUB_SIDE)
+    sub_sys = instantiate(ladder_cfg, sub_units)
+    for tr in ladder_trs:
+        ideal_ok = ideal.success(ladder_sys, "lta", ladder_cfg.s, tr)
+        sub_tables = build_search_tables(sub_sys, tr, max_alias=ladder_cfg.max_fsr_alias)
+        for depth in DEPTHS:
+            asg, stats = out["ladder", tr, depth]
+            res = classify(asg, ladder_cfg.s, policy="lta")
+            if bool(res.dup_lock.any()):
+                fail(f"ladder TR={tr} depth={depth}: duplicate lock")
+            if bool((res.success & ~ideal_ok).any()):
+                fail(f"ladder TR={tr} depth={depth}: success where the ideal fails")
+            _, ref = run_protocol(sub_tables, spec, depth=depth, with_stats=True)
+            for f in stats._fields:
+                if not torch.equal(getattr(stats, f).cpu()[idx], getattr(ref, f)):
+                    fail(f"ladder TR={tr} depth={depth} stats.{f} differs from the "
+                         f"CPU plain path on the {SUB_SIDE}x{SUB_SIDE} subset")
+            print(f"[protocol] wdm8-g200/natural run_protocol TR={tr!r} depth={depth}: "
+                  f"CAFP={float(metrics.cafp(res.success, ideal_ok))!r} "
+                  f"mean probes={float(stats.probes.double().mean())!r} "
+                  f"mean rounds={float(stats.rounds.double().mean())!r} "
+                  f"mean worked={float(stats.worked.double().mean())!r} "
+                  f"max worked={int(stats.worked.max())} "
+                  f"{ms['ladder', tr, depth]!r} ms/call, {n_probe['ladder', tr, depth]} "
+                  f"probe launches (no duplicate lock; stats on "
+                  f"the subset equal to the CPU plain path)")
+    return launches
+
+
+def phase_temporal(seed: int, side: int) -> dict:
+    """The temporal path: run_timeline warm and cold on two drift scenarios
+    at side x side trials, then its checks."""
+    import torch
+
+    from repro_torch.configs.wdm import drift_timeline
+    from repro_torch.core import api
+    from repro_torch.core.temporal import run_timeline
+
+    cells = []
+    for name in DRIFT_CELLS:
+        cfg, tl = drift_timeline(name)
+        cells.append((name, cfg, tl, api.make_units(cfg, seed, side, side),
+                      {"tr_mean": TEMPORAL_TR_X * cfg.grid.grid_spacing}))
+
+    wrappers = reset_launches()
+    out, ms, n_probe = {}, {}, {}
+    for name, cfg, tl, units, var in cells:
+        for warm in (True, False):
+            out[name, warm], ms[name, warm], n_probe[name, warm] = timed_call(
+                lambda: run_timeline(cfg, units, tl, var, warm=warm))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[temporal] launches on the temporal path: {launches}")
+    for k in ("probe", "table_build", "match"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the temporal path")
+
+    for name, cfg, tl, units, var in cells:
+        sub_units, idx = _subset(units, SUB_SIDE)
+        _, tl_cpu = drift_timeline(name, device="cpu")
+        n = cfg.grid.n_ch
+        for warm in (True, False):
+            final, stats = out[name, warm]
+            if stats.locked.shape != (tl.n_steps, side * side) or int(stats.locked.max()) > n:
+                fail(f"{name} warm={warm}: stats shape {tuple(stats.locked.shape)}")
+            ref_final, ref_stats = run_timeline(cfg, sub_units, tl_cpu, var, warm=warm)
+            for f in stats._fields:
+                if not torch.equal(getattr(stats, f).cpu()[:, idx], getattr(ref_stats, f)):
+                    fail(f"{name} warm={warm} TemporalStats.{f} differs from the CPU "
+                         f"plain path on the {SUB_SIDE}x{SUB_SIDE} subset")
+            for f in final._fields:
+                if not torch.equal(getattr(final, f).cpu()[idx], getattr(ref_final, f)):
+                    fail(f"{name} warm={warm} final state {f} differs from the CPU "
+                         f"plain path on the {SUB_SIDE}x{SUB_SIDE} subset")
+            mean = lambda x: [round(v, 4) for v in x.double().mean(dim=1).tolist()]  # noqa: E731
+            print(f"[temporal] {name} {'warm' if warm else 'cold'} T={side * side}: "
+                  f"{ms[name, warm]!r} ms/call, {n_probe[name, warm]} probe launches; "
+                  f"per-step mean probes {mean(stats.probes)}, "
+                  f"rounds {mean(stats.rounds)}, locked {mean(stats.locked)}, broken "
+                  f"{mean(stats.broken)}, churn {mean(stats.churn)}, feasible "
+                  f"{mean(stats.feasible)} (per-step stats and final state on the "
+                  f"subset equal to the CPU plain path)")
+    return launches
+
+
 def phase_timing(seed: int) -> dict:
-    """Kernel and plain-version times on the card at the main path's shapes."""
+    """Kernel and plain-version times on the card at the main path's shapes;
+    ``probe`` at C = 1 and 4 rows of real WDM8/WDM32 tables (E = 3N), half
+    the lines taken, floors in [0, N].  Each kernel: device ms per launch
+    (profiler), ms per wrapper call (CUDA events), plain ms per call."""
+    import torch
+
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core.api import make_units
     from repro_torch.core.matching import adjacency_bitmask
@@ -472,7 +811,12 @@ def phase_timing(seed: int) -> dict:
         perfect_matching_plain,
     )
     from repro_torch.kernels.feasibility import feasibility, feasibility_plain
+    from repro_torch.kernels.probe import masked_research, masked_research_plain
     from repro_torch.kernels.table_build import build_tables, build_tables_plain
+
+    def timed(kernel, fn, plain, reps, plain_reps, cost):
+        return (device_ms(fn, reps, kernel), cuda_ms(fn, reps),
+                cuda_ms(plain, plain_reps), *bound_ms(*cost))
 
     rows = {}
     for key in ("wdm8-g200", "wdm32-g200"):
@@ -480,35 +824,93 @@ def phase_timing(seed: int) -> dict:
         n = cfg.grid.n_ch
         sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
         t = sys_.n_trials
-        feas = (cuda_ms(lambda: feasibility(*sys_, cfg.s), 50),
-                cuda_ms(lambda: feasibility_plain(*sys_, cfg.s), 10),
-                *bound_ms(*feasibility_cost(t, n)))
+        rows["feasibility", key] = timed(
+            "feasibility_kernel", lambda: feasibility(*sys_, cfg.s),
+            lambda: feasibility_plain(*sys_, cfg.s), 50, 10, feasibility_cost(t, n))
         tr = as_f32(TR, sys_.tr_unit.device) * sys_.tr_unit
         kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
         args = (sys_.laser, sys_.ring, sys_.fsr, tr)
         n_j = 2 * cfg.max_fsr_alias + 1
-        table = (cuda_ms(lambda: build_tables(*args, **kw), 20),
-                 cuda_ms(lambda: build_tables_plain(*args, **kw), 3),
-                 *bound_ms(*table_cost(t, n, min(3 * n, n * n_j), n_j)))
+        rows["table_build", key] = timed(
+            "table_build_kernel", lambda: build_tables(*args, **kw),
+            lambda: build_tables_plain(*args, **kw), 20, 3,
+            table_cost(t, n, min(3 * n, n * n_j), n_j))
         adj = adjacency_bitmask(reach_matrix(sys_, TR))
-        match = (cuda_ms(lambda: perfect_matching(adj), 20),
-                 cuda_ms(lambda: perfect_matching_plain(adj), 2),
-                 *bound_ms(*match_cost(t, n)))
+        rows["match", key] = timed(
+            "match_kernel", lambda: perfect_matching(adj),
+            lambda: perfect_matching_plain(adj), 20, 2, match_cost(t, n))
         w = scaled_residual(sys_)
-        bneck = (cuda_ms(lambda: bottleneck_threshold(w), 20),
-                 cuda_ms(lambda: bottleneck_threshold_plain(w), 1),
-                 *bound_ms(*bottleneck_cost(t, n)))
-        for kname, (ms, plain, bound, by) in (("feasibility", feas), ("table_build", table),
-                                              ("match", match), ("bottleneck", bneck)):
-            print(f"[time] {kname} {key} T={t}: kernel {ms!r} ms, plain {plain!r} ms, "
+        rows["bottleneck", key] = timed(
+            "bottleneck_kernel", lambda: bottleneck_threshold(w),
+            lambda: bottleneck_threshold_plain(w), 20, 1, bottleneck_cost(t, n))
+        wl_all = build_tables(*args, **kw)[1]
+        gen = torch.Generator().manual_seed(seed + n)
+        taken = (torch.rand(t, n, generator=gen) < 0.5).cuda()
+        for c in (1, 4):
+            wl = wl_all[:, :c].contiguous()
+            floor = torch.randint(0, n + 1, (t, c), generator=gen, dtype=torch.int32).cuda()
+            n_bytes, n_ops, row_bytes = probe_cost(wl, taken, floor,
+                                                   *masked_research(wl, taken, floor))
+            rows[f"probe C={c}", key] = timed(
+                "probe_kernel", lambda: masked_research(wl, taken, floor),
+                lambda: masked_research_plain(wl, taken, floor), 50, 20, (n_bytes, n_ops))
+            print(f"[time] probe C={c} {key}: bound counts {n_bytes} bytes of the sectors "
+                  f"it scans ({row_bytes} with whole rows: {bound_ms(row_bytes, 0)[0]!r} ms)")
+        for kname in ("feasibility", "table_build", "match", "bottleneck",
+                      "probe C=1", "probe C=4"):
+            ms, call_ms, plain, bound, by = rows[kname, key]
+            print(f"[time] {kname} {key} T={t}: kernel {ms!r} ms on the device, "
+                  f"{call_ms!r} ms per wrapper call, plain {plain!r} ms, "
                   f"bound {bound!r} ms ({by})")
-            rows[kname, key] = (ms, plain, bound, by)
     return rows
+
+
+def phase_profile(seed: int) -> None:
+    """Where a protocol call's time goes (``--profile``): ``evaluate_scheme``
+    for protocol_lta at TR 8.96 and protocol_lta_h1 at fig19's TR 3.436
+    (WDM8 natural, 10,000 trials), each a cold first call and three warm
+    calls untraced, then one warm call traced by ``torch.profiler``.  Prints
+    the kernels' summed device time against the warm wall times (the
+    device's busy share), the kernel launches, and the kernels by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api
+
+    cfg = WDM_CONFIGS["wdm8-g200"]
+    units = api.make_units(cfg, seed, N_SIDE, N_SIDE)
+    for scheme, tr in (("protocol_lta", TR), ("protocol_lta_h1", low_tr())):
+        call = lambda: api.evaluate_scheme(cfg, units, scheme, tr)  # noqa: E731
+        cold_ms = timed_call(call)[1]
+        walls = [timed_call(call)[1] for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels, launches = [], 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                kernels.append((e.self_device_time_total, e.count, e.key))
+            elif e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+                launches += e.count
+        busy_ms = sum(k[0] for k in kernels) / 1e3
+        print(f"[profile] evaluate_scheme wdm8-g200/natural {scheme} TR={tr!r}: cold "
+              f"{cold_ms!r} ms, warm {walls!r} ms untraced; device busy {busy_ms!r} ms "
+              f"traced ({100 * busy_ms / max(walls):.2f}-{100 * busy_ms / min(walls):.2f} % "
+              f"of the warm wall times), {launches} kernel launches, "
+              f"{sum(k[1] for k in kernels)} kernels traced")
+        ranked = sorted(kernels, reverse=True)
+        shown = ranked[:8] + [k for k in ranked[8:] if "probe_kernel" in k[2]]
+        for dev_us, count, key in shown:
+            print(f"[profile]   {dev_us / 1e3!r} ms in {count} x {key[:90]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", action="store_true",
+                        help="build, then trace protocol calls (no checks, no result line)")
     args = parser.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -523,11 +925,20 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
+    if args.profile:
+        phase_profile(args.seed)
+        print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
+        return 0
     max_err = phase_kernels(args.seed)
     max_err.update(phase_matching(args.seed))
+    max_err.update(phase_probe(args.seed))
     launches = phase_main(args.seed)
     lta_launches = phase_lta(args.seed)
     launches.update(match=lta_launches["match"], bottleneck=lta_launches["bottleneck"])
+    proto_launches = phase_protocol(args.seed)
+    temporal_launches = phase_temporal(args.seed, N_SIDE)
+    # probe runs only on the protocol engine: its launches on both paths.
+    launches["probe"] = proto_launches["probe"] + temporal_launches["probe"]
     rows = phase_timing(args.seed)
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 
@@ -545,12 +956,16 @@ def main() -> int:
          "src/repro/kernels/bitmask_match.py:52"),
         ("bottleneck", "src/repro_torch/kernels/csrc/bottleneck.cu",
          "src/repro/kernels/bitmask_match.py:125"),
+        ("probe", "src/repro_torch/kernels/csrc/probe.cu",
+         "src/repro/kernels/probe.py:37"),
     ):
-        ms, plain, bound, by = rows[kname, "wdm32-g200"]
+        # probe: its most frequent call, one table row (C = 1).
+        ms, call_ms, plain, bound, by = rows[kname + (" C=1" if kname == "probe" else ""),
+                                             "wdm32-g200"]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max_err[kname],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
     print(smi)

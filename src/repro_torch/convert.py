@@ -2,7 +2,9 @@
 
 The parity tests draw unit samples with the reference (JAX threefry draws
 are not reproduced here) and hand the same float32 arrays to both packages;
-they can also hand the reference's search tables to both packages' arbiters.
+they can also hand the reference's search tables, protocol states and
+timelines to both packages, so that arbiters, warm starts and timelines are
+compared on identical inputs.
 """
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ import numpy as np
 import torch
 
 from .core.grid import ArbitrationConfig, DWDMGrid, VariationModel
+from .core.protocol import ProtocolState
 from .core.sampling import UnitSamples, resolve_device
 from .core.search_table import SearchTables
+from .core.temporal import Timeline
 
 
 def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
@@ -47,4 +51,27 @@ def tables_from_numpy(delta, wl, n_valid, device=None) -> SearchTables:
         delta=torch.tensor(np.asarray(delta, dtype=np.float32)).to(dev),
         wl=torch.tensor(np.asarray(wl, dtype=np.int32)).to(dev),
         n_valid=torch.tensor(np.asarray(n_valid, dtype=np.int32)).to(dev),
+    )
+
+
+def state_from_numpy(lock, entry, cursor, probes, device=None) -> ProtocolState:
+    """``ProtocolState`` from the reference's (lock, entry, cursor, probes)
+    arrays (int32), so both engines can resume the same warm state."""
+    dev = resolve_device(device)
+    return ProtocolState(*(
+        torch.tensor(np.asarray(a, dtype=np.int32)).to(dev)
+        for a in (lock, entry, cursor, probes)
+    ))
+
+
+def timeline_from_numpy(ring_drift, laser_drift, lane_alive, ring_alive,
+                        device=None) -> Timeline:
+    """``Timeline`` from the reference's (S, N) fields: drifts as float32,
+    liveness as bool."""
+    dev = resolve_device(device)
+    return Timeline(
+        ring_drift=torch.tensor(np.asarray(ring_drift, dtype=np.float32)).to(dev),
+        laser_drift=torch.tensor(np.asarray(laser_drift, dtype=np.float32)).to(dev),
+        lane_alive=torch.tensor(np.asarray(lane_alive, dtype=bool)).to(dev),
+        ring_alive=torch.tensor(np.asarray(ring_alive, dtype=bool)).to(dev),
     )

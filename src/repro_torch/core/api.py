@@ -12,8 +12,10 @@ tensors through their plain PyTorch versions.
 
 Schemes are pluggable: ``register_scheme`` adds a wavelength-oblivious
 arbiter, ``register_scheme_family`` stamps out parametrized variants.  The
-port registers the LtC schemes ``seq``, ``rs_ssm`` and ``vtrs_ssm`` and the
-beyond-paper LtA arbiter ``seq_retry`` with its retry-budget family.
+port registers every scheme of the reference: the LtC schemes ``seq``,
+``rs_ssm`` and ``vtrs_ssm``, the beyond-paper LtA arbiter ``seq_retry`` with
+its retry-budget family, and the protocol-engine schemes ``protocol_lta``
+(with its chain-depth family ``_h1``/``_h2``/``_h4``) and ``protocol_ltd``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from . import ideal, metrics
 from .grid import ArbitrationConfig
 from .lta_retry import sequential_retry
 from .outcomes import classify
+from .protocol import run_protocol
 from .relation import chain_spec, relation_search
 from .sampling import (SystemBatch, UnitSamples, draw_unit_samples, instantiate,
                        resolve_device)
@@ -36,12 +39,6 @@ from .variations import Variations, as_variations
 # An arbiter maps (cfg, tables, spec) -> Assignment using only oblivious
 # primitives (entry indices and masking events; never wavelength values).
 Arbiter = Callable[..., Assignment]
-
-#: Reference schemes whose machinery later slices of the port bring.
-_LATER_SLICES = (
-    ("protocol_", "the protocol-engine slice"),
-)
-
 
 class SchemeSpec(NamedTuple):
     """Registry record for a wavelength-oblivious arbitration scheme.
@@ -101,11 +98,6 @@ def scheme_spec(name: str) -> SchemeSpec:
     try:
         return _SCHEME_REGISTRY[name]
     except KeyError:
-        for prefix, slice_name in _LATER_SLICES:
-            if name.startswith(prefix):
-                raise NotImplementedError(
-                    f"scheme {name!r} is not ported yet; it arrives with {slice_name}"
-                ) from None
         raise ValueError(
             f"unknown scheme {name!r}; registered: {registered_schemes()}"
         ) from None
@@ -157,6 +149,45 @@ register_scheme_family(
         "phys": {"n_rounds": None, "constrained_first": False},
     },
     policy="lta",
+)
+
+
+def make_protocol(depth: int | None = None, n_rounds: int | None = None,
+                  order: str = "constrained") -> Arbiter:
+    """Factory for protocol-engine arbiters (``core.protocol``).
+
+    ``depth`` bounds the displacement chains (None = N, full multi-hop; 0 =
+    probe/release only), ``n_rounds`` the round budget, ``order`` the
+    probe-phase controller order.  The arbiter carries these settings as
+    ``protocol_kwargs``, which re-arbitration (``core.temporal``) passes to
+    ``run_protocol`` with its own warm-start options.
+    """
+    kwargs = {"order": order, "depth": depth, "n_rounds": n_rounds}
+
+    def arbiter(cfg, tables, spec):
+        return run_protocol(tables, spec, **kwargs)
+    arbiter.protocol_kwargs = kwargs
+    return arbiter
+
+
+# Protocol-engine schemes: multi-hop augmenting LtA (it closes seq_retry's
+# residual mid-TR CAFP), its chain-depth family for the probe-budget
+# trade-off (fig19), and the LtD-conditioned chain-order variant.
+register_scheme("protocol_lta", make_protocol(), policy="lta")
+register_scheme_family(
+    "protocol_lta",
+    make_protocol,
+    {
+        "h1": {"depth": 1},
+        "h2": {"depth": 2},
+        "h4": {"depth": 4},
+    },
+    policy="lta",
+)
+register_scheme(
+    "protocol_ltd",
+    make_protocol(depth=0, n_rounds=1, order="chain"),
+    policy="ltd",
 )
 
 

@@ -1,0 +1,298 @@
+"""Temporal re-arbitration: time as a simulation axis.
+
+A locked system has to survive thermal ramps, comb wander, ring aging and
+lane failure.  A drift/event ``Timeline`` drives the protocol engine, whose
+live ``ProtocolState`` is carried from step to step.  Each step:
+
+1. applies the step's drift offsets through the registered variation axes
+   (``thermal_drift`` for the rings, ``comb_wander`` for the comb),
+2. rebuilds the search tables against the live bus (dead lanes and dead
+   rings masked through the tables' ``visible`` mask),
+3. revalidates the carried locks (``protocol.revalidate_state``): a held line
+   missing from the rebuilt table is a *broken* lock; an optional
+   ``hysteresis`` margin breaks locks before drift pushes them out,
+4. re-arbitrates with ``run_protocol`` from the carried state (warm,
+   incremental, transactional) or from scratch (cold, the baseline).
+
+The reference's ``lax.scan`` over steps is a host loop that stacks each
+step's stats.  Checkpointed campaigns (``save_campaign`` and
+``restore_campaign``) arrive with the port of ``checkpoint/store.py``, and
+timeline sweeps with the sweep engine.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .matching import adjacency_bitmask, max_matching
+from .protocol import ProtocolState, cold_state, revalidate_state, run_protocol
+from .reach import as_f32, reach_matrix
+from .relation import chain_spec
+from .sampling import UnitSamples, instantiate, resolve_device
+from .search_table import build_search_tables
+from .variations import Variations, apply_axis_transforms, as_variations
+
+
+class Timeline(NamedTuple):
+    """A drift/event trajectory: per-step offsets and liveness, all (S, N).
+
+    Offsets are in nm and absolute relative to the undrifted system (not
+    per-step increments), so a timeline slice replays identically from a
+    carried state.
+    """
+
+    ring_drift: torch.Tensor   # (S, N) added to every trial's ring resonances
+    laser_drift: torch.Tensor  # (S, N) added to every trial's laser lines
+    lane_alive: torch.Tensor   # (S, N) bool: laser line present on the bus
+    ring_alive: torch.Tensor   # (S, N) bool: ring controller powered
+
+    @property
+    def n_steps(self) -> int:
+        return self.ring_drift.shape[0]
+
+    @property
+    def n_ch(self) -> int:
+        return self.ring_drift.shape[1]
+
+
+class TemporalStats(NamedTuple):
+    """Per-step accounting of one ``run_timeline`` call, all (S, T).
+
+    ``probes``/``rounds`` count each step's own spend; ``broken`` counts locks
+    invalidated at the step's revalidation gate; ``churn`` counts rings whose
+    lock survived revalidation but ended the step on another line;
+    ``feasible`` marks trials whose live bus still admits a perfect matching
+    of live rings onto live lines.
+    """
+
+    probes: torch.Tensor    # (S, T) int32
+    rounds: torch.Tensor    # (S, T) int32
+    locked: torch.Tensor    # (S, T) int32
+    broken: torch.Tensor    # (S, T) int32
+    churn: torch.Tensor     # (S, T) int32
+    feasible: torch.Tensor  # (S, T) bool
+
+
+def _ramp(n_steps: int, spec) -> np.ndarray:
+    """Resolve a drift spec to a (S,) float32 profile: a scalar (linear ramp
+    0 -> spec), (K, 2) ``(step, value)`` breakpoints, or a (S,) array."""
+    steps = np.arange(n_steps, dtype=np.float32)
+    if spec is None:
+        return np.zeros(n_steps, np.float32)
+    arr = np.asarray(spec, np.float32)
+    if arr.ndim == 0:
+        last = max(1, n_steps - 1)
+        return arr * steps / last
+    if arr.ndim == 2 and arr.shape[1] == 2:
+        return np.interp(steps, arr[:, 0], arr[:, 1]).astype(np.float32)
+    if arr.shape != (n_steps,):
+        raise ValueError(
+            f"drift spec must be scalar, (K, 2) breakpoints or ({n_steps},); "
+            f"got shape {arr.shape}"
+        )
+    return arr
+
+
+_EVENT_KINDS = ("lane_kill", "lane_swap", "ring_kill", "ring_swap")
+
+
+def make_timeline(
+    n_steps: int,
+    n_ch: int,
+    *,
+    thermal=None,
+    aging=None,
+    comb=None,
+    events: Sequence[tuple] = (),
+    device=None,
+) -> Timeline:
+    """Deterministic timeline builder (numpy on the host, then ``device``,
+    CUDA unless named).
+
+    thermal: uniform ring red-shift profile [nm]: a scalar (linear ramp to
+             that value), (K, 2) ``(step, value)`` breakpoints, or (S,).
+    aging:   differential aging: ring i accumulates ``profile * i/(N-1)``.
+    comb:    uniform laser-line wander [nm]: ``(amplitude, period)`` for a
+             sinusoid, or the same forms as thermal.
+    events:  ``(step, kind, channel)``, kind one of lane_kill / lane_swap /
+             ring_kill / ring_swap; liveness changes persist from ``step``.
+    """
+    dev = resolve_device(device)
+    thermal_t = _ramp(n_steps, thermal)
+    aging_t = _ramp(n_steps, aging)
+    if isinstance(comb, tuple) and len(comb) == 2 and np.ndim(comb[0]) == 0:
+        amp, period = comb
+        comb_t = np.float32(amp) * np.sin(
+            2.0 * np.pi * np.arange(n_steps) / float(period)
+        ).astype(np.float32)
+    else:
+        comb_t = _ramp(n_steps, comb)
+
+    tilt = np.arange(n_ch, dtype=np.float32) / max(1, n_ch - 1)
+    ring_drift = thermal_t[:, None] + aging_t[:, None] * tilt[None, :]
+    laser_drift = np.broadcast_to(comb_t[:, None], (n_steps, n_ch)).copy()
+
+    lane = np.ones((n_steps, n_ch), bool)
+    ring = np.ones((n_steps, n_ch), bool)
+    for step, kind, ch in events:
+        if kind not in _EVENT_KINDS:
+            raise ValueError(f"unknown event kind {kind!r}; valid: {_EVENT_KINDS}")
+        target = lane if kind.startswith("lane") else ring
+        target[step:, ch] = kind.endswith("swap")
+    return Timeline(
+        ring_drift=torch.from_numpy(np.asarray(ring_drift, np.float32)).to(dev),
+        laser_drift=torch.from_numpy(np.asarray(laser_drift, np.float32)).to(dev),
+        lane_alive=torch.from_numpy(lane).to(dev),
+        ring_alive=torch.from_numpy(ring).to(dev),
+    )
+
+
+def slice_timeline(tl: Timeline, start: int, stop: int | None = None) -> Timeline:
+    """Steps ``[start, stop)`` of a timeline (offsets are absolute, so a
+    slice resumes identically from a carried state)."""
+    return Timeline(*(a[start:stop] for a in tl))
+
+
+def _protocol_kwargs(scheme: str) -> dict | None:
+    """``run_protocol`` kwargs of a registered protocol scheme (the settings
+    ``api.make_protocol`` baked into its arbiter), or None for one-shot
+    schemes (cold-only re-arbitration, no probe stats)."""
+    from .api import scheme_spec  # local: api imports this module's deps
+
+    kw = getattr(scheme_spec(scheme).arbiter, "protocol_kwargs", None)
+    return None if kw is None else dict(kw)
+
+
+def _where_trials(mask: torch.Tensor, a: ProtocolState, b: ProtocolState) -> ProtocolState:
+    """Per trial: ``a`` where ``mask`` (T,) else ``b``."""
+    return ProtocolState(*(
+        torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+        for x, y in zip(a, b)
+    ))
+
+
+def protocol_relock(tables, spec, start: ProtocolState, *, warm: bool,
+                    transactional: bool = True, patience: int | None = 4,
+                    kw: dict | None = None):
+    """One re-lock pass of the protocol engine from ``start``.
+
+    Returns ``(new_state, probes, rounds)``.  With ``warm=True`` the pass
+    includes the cold escalation: trials the warm pass left unresolved (a
+    starved ring with peaks remains, and the warm start held some lock) rerun
+    from scratch and pay both passes' probes and rounds; the cold result is
+    taken where it locked more rings.
+    """
+    t, n = start.lock.shape
+    kw = kw or {}
+    _, stats, new = run_protocol(
+        tables, spec, with_stats=True, with_state=True, init_state=start,
+        transactional=transactional, patience=patience, **kw,
+    )
+    probes, rounds = stats.probes, stats.worked
+    if warm:
+        unresolved = (((new.lock < 0) & (tables.n_valid > 0)).any(dim=1)
+                      & (start.lock >= 0).any(dim=1))
+        _, cstats, cnew = run_protocol(
+            tables, spec, with_stats=True, with_state=True,
+            init_state=cold_state(t, n, start.lock.device),
+            transactional=transactional, patience=patience, **kw,
+        )
+        use_cold = unresolved & (cstats.locked > stats.locked)
+        new = _where_trials(use_cold, cnew, new)
+        probes = probes + torch.where(unresolved, cstats.probes, 0)
+        rounds = rounds + torch.where(unresolved, cstats.worked, 0)
+    return new, probes, rounds
+
+
+def run_timeline_impl(
+    cfg,
+    units: UnitSamples,
+    timeline: Timeline,
+    variations=None,
+    *,
+    scheme: str = "protocol_lta",
+    warm: bool = True,
+    transactional: bool = True,
+    patience: int | None = 4,
+    hysteresis=0.0,
+    init_state: ProtocolState | None = None,
+    trace: int | None = None,
+):
+    """Drive the protocol engine along a drift/event timeline.
+
+    warm=True re-arbitrates incrementally from the carried lock state;
+    warm=False is the cold baseline (full re-arbitration every step; the
+    carried state still gives broken/churn step over step).  Both run the
+    engine with the same ``transactional``/``patience`` settings.  Returns
+    ``(final_state, TemporalStats)``; the state resumes a later call through
+    ``init_state`` with ``slice_timeline``.  ``trace`` (the flight recorder)
+    is not ported yet and raises.
+    """
+    from .api import scheme_spec  # local: api imports this module's deps
+
+    if trace is not None:
+        raise NotImplementedError(
+            "run_timeline(trace=...): the flight recorder is not ported yet; "
+            "it arrives with the observability slice of the port")
+    over = as_variations(variations)
+    tr = over.resolve("tr_mean", cfg)
+    sys = instantiate(cfg, units, over)
+    spec = chain_spec(cfg.s)
+    t, n = sys.laser.shape
+    dev = sys.laser.device
+    kw = _protocol_kwargs(scheme)
+    if kw is None and warm:
+        raise ValueError(
+            f"scheme {scheme!r} is one-shot: it carries no protocol state, "
+            "so only cold (warm=False) re-arbitration is defined"
+        )
+    arbiter = scheme_spec(scheme).arbiter
+    state = cold_state(t, n, dev) if init_state is None else init_state
+    zeros = torch.zeros((t,), dtype=torch.int32, device=dev)
+    steps = []
+    for s_idx in range(timeline.n_steps):
+        ring_drift, laser_drift, lane_alive, ring_alive = (a[s_idx] for a in timeline)
+        sys_s = apply_axis_transforms(
+            sys, Variations(thermal_drift=ring_drift, comb_wander=laser_drift), cfg)
+        alive = lane_alive[None, :] & ring_alive[:, None]             # (N, N)
+        vis = alive.expand(t, n, n).contiguous()
+        tables = build_search_tables(sys_s, tr, visible=vis,
+                                     max_alias=cfg.max_fsr_alias)
+        prev_lock = state.lock
+        reval, kept = revalidate_state(
+            tables, state, tr=as_f32(tr, dev) * sys_s.tr_unit, hysteresis=hysteresis)
+        broken = ((prev_lock >= 0) & (reval.lock < 0)).sum(dim=1, dtype=torch.int32)
+        if kw is None:
+            asg = arbiter(cfg, tables, spec)
+            entry = asg.entry.to(torch.int32)
+            new = ProtocolState(lock=asg.wl.to(torch.int32), entry=entry,
+                                cursor=entry.clamp(min=0), probes=zeros)
+            probes, rounds = zeros, zeros
+        else:
+            start = (reval if warm else cold_state(t, n, dev))._replace(probes=zeros)
+            new, probes, rounds = protocol_relock(
+                tables, spec, start, warm=warm, transactional=transactional,
+                patience=patience, kw=kw)
+        churn = (kept & (new.lock != prev_lock)).sum(dim=1, dtype=torch.int32)
+        # Feasibility of the live bus: every live ring matchable to a
+        # distinct live line within TR (dead rings exempt, dead lanes gone).
+        reach = reach_matrix(sys_s, tr) & alive[None]
+        match_wl, _ = max_matching(adjacency_bitmask(reach))
+        n_live = ring_alive.sum(dtype=torch.int32)
+        feasible = (match_wl >= 0).sum(dim=1, dtype=torch.int32) >= n_live
+        steps.append(TemporalStats(
+            probes=probes, rounds=rounds, locked=(new.lock >= 0).sum(dim=1, dtype=torch.int32),
+            broken=broken, churn=churn, feasible=feasible,
+        ))
+        state = new
+    if not steps:
+        empty = torch.zeros((0, t), dtype=torch.int32, device=dev)
+        return state, TemporalStats(empty, empty, empty, empty, empty,
+                                    empty.to(torch.bool))
+    return state, TemporalStats(*(torch.stack(f) for f in zip(*steps)))
+
+
+#: The reference jit-compiles ``run_timeline_impl``; the port runs it eagerly.
+run_timeline = run_timeline_impl

@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("feasibility.cu", "table_build.cu", "match.cu", "bottleneck.cu")
+SOURCES = ("feasibility.cu", "table_build.cu", "match.cu", "bottleneck.cu",
+           "probe.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 
@@ -130,6 +131,8 @@ def library() -> ctypes.CDLL:
     lib.match_launch.restype = _I
     lib.bottleneck_launch.argtypes = [_P, _I, _I, _P, _P]
     lib.bottleneck_launch.restype = _I
+    lib.probe_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+    lib.probe_launch.restype = _I
     return lib
 
 

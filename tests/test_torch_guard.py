@@ -21,6 +21,7 @@ from repro_torch.kernels.bitmask_match import (  # noqa: E402
     perfect_matching,
 )
 from repro_torch.kernels.feasibility import feasibility  # noqa: E402
+from repro_torch.kernels.probe import masked_research  # noqa: E402
 from repro_torch.kernels.table_build import build_tables  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +32,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.core.api, repro_torch.convert, repro_torch.configs.wdm\n"
-        "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels._build, repro_torch.kernels.probe\n"
+        "import repro_torch.core.protocol, repro_torch.core.temporal\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -83,8 +85,13 @@ def test_kernel_wrappers_launch_or_raise_off_the_cpu():
         perfect_matching(torch.empty((4, 8), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         bottleneck_threshold(torch.empty((4, 8, 8), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        masked_research(torch.empty((4, 1, 24), dtype=torch.int32, device="meta"),
+                        torch.empty((4, 8), dtype=torch.bool, device="meta"),
+                        torch.empty((4, 1), dtype=torch.int32, device="meta"))
     assert feasibility.launches == 0 and build_tables.launches == 0
     assert perfect_matching.launches == 0 and bottleneck_threshold.launches == 0
+    assert masked_research.launches == 0
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -99,7 +106,7 @@ def test_matching_wrappers_refuse_more_than_64_lines(device):
 
 def test_nvcc_command_line_targets_hopper_without_contraction():
     cmds = _build.compile_commands("nvcc", Path("out"))
-    assert len(cmds) == len(_build.SOURCES) == 4
+    assert len(cmds) == len(_build.SOURCES) == 5
     for cmd in cmds + [_build.link_command("nvcc", Path("out"))]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)
@@ -119,17 +126,29 @@ def test_build_without_nvcc_raises_clearly(monkeypatch):
         _build.find_nvcc()
 
 
-@pytest.mark.parametrize("name,slice_word", [
-    ("seq_retry", None), ("seq_retry_r2", None),
-    ("protocol_lta", "protocol"), ("protocol_ltd", "protocol"),
+@pytest.mark.parametrize("name,policy,params", [
+    ("seq_retry", "lta", {}), ("seq_retry_r2", "lta", {"n_rounds": 2}),
+    ("protocol_lta", "lta", {}), ("protocol_ltd", "ltd", {}),
+    ("protocol_lta_h2", "lta", {"depth": 2}),
 ])
-def test_later_slice_schemes_raise_with_their_slice(name, slice_word):
-    """The LtA slice registers seq_retry*; protocol schemes still raise."""
-    if slice_word is None:
-        assert api.scheme_spec(name).policy == "lta"
-        return
-    with pytest.raises(NotImplementedError, match=slice_word):
-        api.scheme_spec(name)
+def test_later_slice_schemes_raise_with_their_slice(name, policy, params):
+    """Every scheme of the reference is registered now, with the
+    reference's conditioning policy and parameters; none raises."""
+    spec = api.scheme_spec(name)
+    assert spec.policy == policy
+    assert dict(spec.params) == params
+
+
+def test_protocol_trace_waits_for_the_observability_slice():
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.core.relation import chain_spec
+    from repro_torch.core.search_table import SearchTables
+
+    tables = SearchTables(delta=torch.zeros((1, 2, 6)),
+                          wl=torch.full((1, 2, 6), -1, dtype=torch.int32),
+                          n_valid=torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="observability slice"):
+        run_protocol(tables, chain_spec(np.arange(2)), trace=32)
 
 
 def test_unknown_scheme_and_lta_policy():
@@ -140,7 +159,8 @@ def test_unknown_scheme_and_lta_policy():
     assert lta.shape == (2,) and lta.dtype == torch.float32
     assert api.registered_schemes() == (
         "seq", "rs_ssm", "vtrs_ssm", "seq_retry", "seq_retry_r1",
-        "seq_retry_r2", "seq_retry_r4", "seq_retry_phys")
+        "seq_retry_r2", "seq_retry_r4", "seq_retry_phys", "protocol_lta",
+        "protocol_lta_h1", "protocol_lta_h2", "protocol_lta_h4", "protocol_ltd")
 
 
 def test_scheme_registry_family_and_duplicates():
