@@ -12,10 +12,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             against plain versions run on the CPU, ``match``, ``bottleneck``
             and ``probe`` against plain versions run on the card (WDM8 to
             WDM64, random bitmasks with bits 31 and 63 set, tie-heavy integer
-            weights, a ragged 10,007-trial edge; for ``probe`` C = 1 and 4
-            rows, floors -1, 0, E and E + 3, line ids >= L, all-taken and
-            all-invalid rows, and every re-search of the first two rounds of
-            a WDM16 protocol run);
+            weights, a ragged 10,007-trial edge; for ``table_build`` TR 2,
+            8.96 and 20 with 2-D and 3-D masks at WDM8/16/32, WDM64 (E =
+            192), the ragged edge, the temporal path's WDM16 (T, N, N) mask
+            of a hot-swap step, and grid-quantized tie-heavy systems at
+            max_alias 1, 3 and 8 and at N = 13 (E = 39) where most rows hold
+            more window candidates than E; for ``probe`` C = 1 and 4 rows,
+            E = 39 rows on and off 16-byte alignment, floors -1, 0, E and
+            E + 3, line ids >= L, all-taken and all-invalid rows, and every
+            re-search of the first two rounds of a WDM16 protocol run);
 3. main     drive each ported path with the launch counts set to 0 just
             before and read just after, at 100 x 100 = 10,000 trials: the
             paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
@@ -32,7 +37,7 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             cold on the wdm16-thermal and wdm16-hotswap drift scenarios at
             TR = 4 x grid spacing).  Per-trial results on a 20 x 20 subset are
             held against the CPU plain path, and every call is timed;
-4. timing   each kernel and its plain version alone at WDM8 and WDM32,
+4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32,
             beside its bound: the kernel's device time per launch from a
             ``torch.profiler`` trace, the wrapper's time per call from CUDA
             events over back-to-back calls (which holds the host's cost of
@@ -247,6 +252,81 @@ def reset_launches() -> dict:
     return wrappers
 
 
+def window_count(laser, ring, fsr, tr, vis, max_alias: int):
+    """Per (trial, ring), the candidates in the window (visible lines only):
+    how many a table of unbounded width would hold."""
+    import torch
+
+    j = torch.arange(-max_alias, max_alias + 1, dtype=torch.float32)
+    d = (laser[:, None, :, None] - ring[:, :, None, None]) - j * fsr[:, :, None, None]
+    ok = (d >= 0.0) & (d <= tr[:, :, None, None])
+    if vis is not None:
+        ok &= vis[:, None, :, None] if vis.dim() == 2 else vis[..., None]
+    return ok.sum(dim=(2, 3))
+
+
+def table_cases(seed: int):
+    """Phase-2 inputs of ``table_build``: (name, (laser, ring, fsr, tr) on the
+    card, visible mask on the CPU or None, max_alias, max_entries)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS, drift_timeline
+    from repro_torch.core.api import make_units
+    from repro_torch.core.reach import as_f32
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.core.variations import Variations, apply_axis_transforms
+
+    def real(key, n_l, n_r, trs, masks, label=None):
+        cfg = WDM_CONFIGS[key]
+        n = cfg.grid.n_ch
+        sys_ = instantiate(cfg, make_units(cfg, seed, n_l, n_r))
+        t = sys_.n_trials
+        gen = torch.Generator().manual_seed(seed + n)
+        vis_of = {"2-D mask": lambda: torch.rand(t, n, generator=gen) < 0.7,
+                  "3-D mask": lambda: torch.rand(t, n, n, generator=gen) < 0.7}
+        cases = [(f"TR={tr}", tr, None) for tr in trs]
+        cases += [(f"TR=8.96 {m}", 8.96, vis_of[m]()) for m in masks]
+        for name, tr_mean, vis in cases:
+            tr = as_f32(tr_mean, sys_.tr_unit.device) * sys_.tr_unit
+            yield (f"{label or key} {name}", (sys_.laser, sys_.ring, sys_.fsr, tr), vis,
+                   cfg.max_fsr_alias, 3 * n)
+
+    both = ("2-D mask", "3-D mask")
+    for key in ("wdm8-g200", "wdm16-g200", "wdm32-g200"):
+        yield from real(key, N_SIDE, N_SIDE, (2.0, 8.96, 20.0), both)
+    yield from real("wdm64-g200", 40, N_SIDE, (8.96, 20.0), ("3-D mask",))
+    yield from real("wdm32-g200", 1, 10007, (8.96,), ("3-D mask",), "wdm32 ragged")
+
+    # The temporal path's input: wdm16-hotswap at step 3 (lane 5 killed),
+    # drifted, with its (T, N, N) mask of live lanes and rings.
+    cfg, tl = drift_timeline("wdm16-hotswap")
+    sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
+    ring_drift, laser_drift, lane_alive, ring_alive = (a[3] for a in tl)
+    sys_ = apply_axis_transforms(
+        sys_, Variations(thermal_drift=ring_drift, comb_wander=laser_drift), cfg)
+    t, n = sys_.laser.shape
+    vis = (lane_alive[None, :] & ring_alive[:, None]).expand(t, n, n).contiguous()
+    tr = as_f32(TEMPORAL_TR_X * cfg.grid.grid_spacing, sys_.tr_unit.device) * sys_.tr_unit
+    yield ("wdm16-hotswap step 3 temporal 3-D mask", (sys_.laser, sys_.ring, sys_.fsr, tr),
+           vis.cpu(), cfg.max_fsr_alias, 3 * n)
+
+    # Grid-quantized systems (every delta a multiple of 0.25): many (k, j)
+    # share a delta, and most rows hold more window candidates than E.
+    # N = 13 takes two lines a lane in groups of 8, and E = 39 scalar stores.
+    rng = np.random.default_rng(seed)
+    for n, aliases in ((8, (1, 3, 8)), (32, (8,)), (13, (8,))):
+        t = N_SIDE * N_SIDE
+        laser = rng.integers(0, 8, (t, n)).astype(np.float32) * 0.25
+        ring = rng.integers(-4, 4, (t, n)).astype(np.float32) * 0.25
+        fsr = rng.integers(1, 4, (t, n)).astype(np.float32) * 0.25
+        args = tuple(torch.from_numpy(a).cuda() for a in
+                     (laser, ring, fsr, np.full((t, n), 3.0, np.float32)))
+        for max_alias in aliases:
+            yield (f"quantized N={n} max_alias={max_alias} TR=3.0", args, None,
+                   max_alias, 3 * n)
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -264,7 +344,6 @@ def phase_kernels(seed: int) -> dict:
 
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core.api import make_units
-    from repro_torch.core.reach import as_f32
     from repro_torch.core.sampling import SystemBatch, instantiate
     from repro_torch.kernels.feasibility import feasibility, feasibility_plain
     from repro_torch.kernels.table_build import build_tables, build_tables_plain
@@ -306,27 +385,16 @@ def phase_kernels(seed: int) -> dict:
         compare(f"feasibility near-integer {tag}", g, w, errs["feasibility"])
     print(f"[kernels] feasibility near-integer d/fsr: T={t} bit-exact")
 
-    for key in ("wdm8-g200", "wdm32-g200"):
-        cfg = WDM_CONFIGS[key]
-        n = cfg.grid.n_ch
-        sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
-        t = sys_.n_trials
-        gen = torch.Generator().manual_seed(seed + n)
-        masks = {"2-D mask": torch.rand(t, n, generator=gen) < 0.7,
-                 "3-D mask": torch.rand(t, n, n, generator=gen) < 0.7}
-        cases = [(f"TR={tr}", tr, None) for tr in (2.0, 8.96, 20.0)]
-        cases += [(f"TR=8.96 {k}", 8.96, v) for k, v in masks.items()]
-        for name, tr_mean, vis in cases:
-            tr = as_f32(tr_mean, sys_.tr_unit.device) * sys_.tr_unit
-            kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
-            got = build_tables(sys_.laser, sys_.ring, sys_.fsr, tr,
-                               visible=None if vis is None else vis.cuda(), **kw)
-            want = build_tables_plain(*cpu((sys_.laser, sys_.ring, sys_.fsr, tr)),
-                                      visible=vis, **kw)
-            for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
-                compare(f"table_build {key} {name} {tag}", g, w, errs["table_build"])
-            print(f"[kernels] table_build {key} {name}: T={t} E={got[0].shape[-1]} "
-                  f"exact (n_valid max {int(got[2].max())})")
+    for name, args, vis, max_alias, e in table_cases(seed):
+        kw = dict(max_alias=max_alias, max_entries=e)
+        got = build_tables(*args, visible=None if vis is None else vis.cuda(), **kw)
+        want = build_tables_plain(*cpu(args), visible=vis, **kw)
+        for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
+            compare(f"table_build {name} {tag}", g, w, errs["table_build"])
+        over = int((window_count(*cpu(args), vis, max_alias) > e).sum())
+        print(f"[kernels] table_build {name}: T={args[0].shape[0]} E={got[0].shape[-1]} "
+              f"exact (n_valid max {int(got[2].max())}; {over} of {got[2].numel()} "
+              f"rows with more window candidates than E)")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -428,6 +496,14 @@ def phase_probe(seed: int) -> dict:
                 taken = torch.rand(t, n, generator=gen) < 0.5
                 floor = torch.randint(0, e + 1, (t, c), generator=gen, dtype=torch.int32)
                 check(f"random N={n}", wl.cuda(), taken.cuda(), floor.cuda())
+
+    # E = 39, and a row start off 16-byte alignment: the scalar loads.
+    t, n, e = N_SIDE * N_SIDE, 13, 39
+    flat = torch.randint(-1, n, (t * 4 * e + 1,), generator=gen, dtype=torch.int32).cuda()
+    floor = torch.randint(-1, e + 1, (t, 4), generator=gen, dtype=torch.int32).cuda()
+    taken = (torch.rand(t, n, generator=gen) < 0.5).cuda()
+    for tag, wl in (("E=39", flat[:-1]), ("E=39 off 16-byte alignment", flat[1:])):
+        check(tag, wl.view(t, 4, e), taken, floor)
 
     # Edge cases: floors -1, 0, E, E + 3 in rows 0..3; line ids up to L + 3
     # (never taken); row 1 all invalid; every 7th trial has every line taken.
@@ -793,10 +869,11 @@ def phase_temporal(seed: int, side: int) -> dict:
 
 
 def phase_timing(seed: int) -> dict:
-    """Kernel and plain-version times on the card at the main path's shapes;
-    ``probe`` at C = 1 and 4 rows of real WDM8/WDM32 tables (E = 3N), half
-    the lines taken, floors in [0, N].  Each kernel: device ms per launch
-    (profiler), ms per wrapper call (CUDA events), plain ms per call."""
+    """Kernel and plain-version times on the card at the main paths' shapes,
+    WDM8, WDM16 (the temporal path's) and WDM32; ``probe`` at C = 1 and 4
+    rows of real tables (E = 3N), half the lines taken, floors in [0, N].
+    Each kernel: device ms per launch (profiler), ms per wrapper call (CUDA
+    events), plain ms per call."""
     import torch
 
     from repro_torch.configs.wdm import WDM_CONFIGS
@@ -819,7 +896,7 @@ def phase_timing(seed: int) -> dict:
                 cuda_ms(plain, plain_reps), *bound_ms(*cost))
 
     rows = {}
-    for key in ("wdm8-g200", "wdm32-g200"):
+    for key in ("wdm8-g200", "wdm16-g200", "wdm32-g200"):
         cfg = WDM_CONFIGS[key]
         n = cfg.grid.n_ch
         sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))

@@ -40,13 +40,14 @@ def _check(wl, taken, floor) -> tuple[int, int, int, int]:
                          f"{tuple(taken.shape)}, floor {tuple(floor.shape)}")
     if c < 1 or e < 1 or taken.shape[1] < 1:
         raise ValueError("probe: C, E and L must be >= 1")
+    dev = wl.device
+    if dev.type != "cuda" or taken.device != dev or floor.device != dev:
+        raise ValueError("probe: all inputs must lie on one CUDA device")
     for a, dtype in ((wl, torch.int32), (taken, torch.bool), (floor, torch.int32)):
-        if a.device.type != "cuda" or a.device != wl.device:
-            raise ValueError("probe: all inputs must lie on one CUDA device")
         if a.dtype != dtype:
             raise TypeError(f"probe: expected {dtype}, got {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError("probe: inputs must be contiguous")
+    if not (wl.is_contiguous() and taken.is_contiguous() and floor.is_contiguous()):
+        raise ValueError("probe: inputs must be contiguous")
     return t, c, e, taken.shape[1]
 
 
@@ -60,16 +61,25 @@ def masked_research(wl: torch.Tensor, taken: torch.Tensor, floor: torch.Tensor):
     if wl.device.type == "cpu":
         return masked_research_plain(wl, taken, floor)
     t, c, e, n_lines = _check(wl, taken, floor)
-    first = torch.empty((t, c), dtype=torch.int32, device=wl.device)
-    found = torch.empty((t, c), dtype=torch.bool, device=wl.device)
-    with torch.cuda.device(wl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.library().probe_launch(
-            wl.data_ptr(), taken.data_ptr(), floor.data_ptr(), t, c, e, n_lines,
-            first.data_ptr(), found.data_ptr(), stream)
+    dev = wl.device
+    first = torch.empty((t, c), dtype=torch.int32, device=dev)
+    found = torch.empty((t, c), dtype=torch.bool, device=dev)
+    args = (wl.data_ptr(), taken.data_ptr(), floor.data_ptr(), t, c, e, n_lines,
+            first.data_ptr(), found.data_ptr())
+    # The launch goes to the current stream of the inputs' device; the device
+    # guard is entered only when another device is current.
+    if dev.index == torch.cuda.current_device():
+        err = _launch(args, dev.index)
+    else:
+        with torch.cuda.device(dev):
+            err = _launch(args, dev.index)
     _build.check(err, "probe")
     masked_research.launches += 1
     return first, found
+
+
+def _launch(args, index: int) -> int:
+    return _build.library().probe_launch(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 masked_research.launches = 0

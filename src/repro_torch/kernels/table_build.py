@@ -19,6 +19,7 @@ from . import _build
 
 MAX_N = 64
 MAX_E = 192
+MAX_ALIAS = 32767   # the kernel keys a candidate as (k << 16) | (j + J)
 
 
 def table_width(n: int, max_alias: int, max_entries: int) -> int:
@@ -68,8 +69,9 @@ def build_tables(laser, ring, fsr, tr, *, visible=None, max_alias: int,
                              f"got {tuple(visible.shape)}")
         if not visible.is_contiguous():
             raise ValueError("table_build: visible must be contiguous")
-    if max_alias < 0:
-        raise ValueError(f"table_build: max_alias must be >= 0, got {max_alias}")
+    if not 0 <= max_alias <= MAX_ALIAS:
+        raise ValueError(f"table_build: max_alias must be in [0, {MAX_ALIAS}], "
+                         f"got {max_alias}")
     e = table_width(n, max_alias, max_entries)
     if not 1 <= e <= MAX_E:
         raise ValueError(f"table_build: E must be in [1, {MAX_E}], got {e}")

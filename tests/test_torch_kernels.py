@@ -165,7 +165,7 @@ def test_tables_alias_bound_and_width(max_alias, max_entries):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("max_alias", [1, 3])
+@pytest.mark.parametrize("max_alias", [1, 3, 8])
 def test_tables_tie_order_on_quantized_systems(seed, max_alias):
     """Grid-quantized systems make many candidate deltas exactly equal
     across (line, alias) pairs; ties must fall in flat-index order."""
