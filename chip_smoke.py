@@ -12,20 +12,27 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             against plain versions run on the CPU, ``match``, ``bottleneck``
             and ``probe`` against plain versions run on the card (WDM8 to
             WDM64, random bitmasks with bits 31 and 63 set, tie-heavy integer
-            weights, a ragged 10,007-trial edge; for ``table_build`` TR 2,
-            8.96 and 20 with 2-D and 3-D masks at WDM8/16/32, WDM64 (E =
-            192), the ragged edge, the temporal path's WDM16 (T, N, N) mask
-            of a hot-swap step, and grid-quantized tie-heavy systems at
-            max_alias 1, 3 and 8 and at N = 13 (E = 39) where most rows hold
-            more window candidates than E; for ``probe`` C = 1 and 4 rows,
-            E = 39 rows on and off 16-byte alignment, floors -1, 0, E and
-            E + 3, line ids >= L, all-taken and all-invalid rows, and every
-            re-search of the first two rounds of a WDM16 protocol run);
+            weights, a ragged 10,007-trial edge; for ``feasibility`` also
+            random systems at N = 13 and 40 with a permuted s, ragged edges at
+            N = 8 and 16, and NaN and +-inf inputs, held against the plain
+            version on the card bit for bit and on the CPU up to the NaN's
+            bits; for ``bottleneck`` tie-heavy integers at N = 5, 8, 16, 33,
+            64, ragged edges at N = 8 and 16, and rows of +inf weights; for
+            ``table_build`` TR 2, 8.96 and 20 with 2-D and 3-D masks at
+            WDM8/16/32, WDM64 (E = 192), the ragged edge, the temporal path's
+            WDM16 (T, N, N) mask of a hot-swap step, and grid-quantized
+            tie-heavy systems at max_alias 1, 3 and 8 and at N = 13 (E = 39)
+            where most rows hold more window candidates than E; for ``probe``
+            C = 1 and 4 rows, E = 39 rows on and off 16-byte alignment,
+            floors -1, 0, E and E + 3, line ids >= L, all-taken and
+            all-invalid rows, and every re-search of the first two rounds of
+            a WDM16 protocol run);
 3. main     drive each ported path with the launch counts set to 0 just
-            before and read just after, at 100 x 100 = 10,000 trials: the
-            paper's LtC path (``evaluate_scheme`` for seq, rs_ssm and
-            vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for ltc and
-            ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
+            before and read just after (each kernel's ``launches`` in the
+            kernels line is its sum over the paths), at 100 x 100 = 10,000
+            trials: the paper's LtC path (``evaluate_scheme`` for seq,
+            rs_ssm and vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for
+            ltc and ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
             the LtA path (``evaluate_policy`` and ``policy_min_tr`` for lta
             at WDM8 natural and permuted, WDM16 and WDM32; the five
             ``seq_retry*`` schemes at WDM8 natural and permuted and
@@ -189,9 +196,10 @@ def match_cost(t: int, n: int) -> tuple[float, float]:
 
 def bottleneck_cost(t: int, n: int) -> tuple[float, float]:
     """Bytes: (T, N, N) float32 weights read, (T,) written.  Operations: the
-    selection compares, N per step, N steps per ring, N rings (fixed trip
-    counts); the relaxations depend on the data and are not counted."""
-    return t * n * n * 4 + t * 4, t * n * n * n
+    first selection of each ring, N compares, N rings; the further steps
+    and relaxations depend on the data (the search stops early) and are not
+    counted."""
+    return t * n * n * 4 + t * 4, t * n * n
 
 
 def probe_cost(wl, taken, floor, first, found) -> tuple[float, float, float]:
@@ -351,20 +359,60 @@ def phase_kernels(seed: int) -> dict:
     errs = {"feasibility": [], "table_build": []}
     cpu = lambda xs: [x.cpu() for x in xs]  # noqa: E731
 
+    def check_feasibility(name, sys_, s, nonfinite=False):
+        """sys_ on the card.  With NaN inputs the plain version on the card
+        is held bit for bit, the CPU one up to the NaN's bits: the card's
+        arithmetic makes NaN with other bits than the CPU's."""
+        got = feasibility(*sys_, s)
+        want = feasibility_plain(*cpu(sys_), s)
+        if nonfinite:
+            for tag, g, w, w_card in zip(("ltd", "ltc"), got, want,
+                                         feasibility_plain(*sys_, s)):
+                compare(f"feasibility {name} {tag}", g, w_card, errs["feasibility"])
+                nan = torch.isnan(w)
+                if not (torch.equal(torch.isnan(g.cpu()), nan)
+                        and torch.equal(bits(g)[~nan], bits(w)[~nan])):
+                    fail(f"feasibility {name} {tag}: differs from the CPU plain version")
+            print(f"[kernels] feasibility {name}: T={sys_.laser.shape[0]} "
+                  f"N={sys_.laser.shape[1]} bit-exact to the plain version on the card, "
+                  f"equal to the CPU one ({int(torch.isnan(want[1]).sum())} NaN ltc, "
+                  f"{int(torch.isinf(want[0]).sum())} inf ltd)")
+            return
+        for tag, g, w in zip(("ltd", "ltc"), got, want):
+            compare(f"feasibility {name} {tag}", g, w, errs["feasibility"])
+        print(f"[kernels] feasibility {name}: T={sys_.laser.shape[0]} "
+              f"N={sys_.laser.shape[1]} bit-exact")
+
+    def plant_nonfinite(sys_):
+        """A copy with NaN and +-inf planted in every trial but each 7th: a
+        ring with fsr = 0, a NaN laser, a ring with fsr = +inf, tr_unit 0 and
+        +inf, a laser at -inf."""
+        laser, ring, fsr, tr_unit = (x.clone() for x in sys_)
+        n = laser.shape[1]
+        fsr[0::7, 2 % n] = 0.0
+        laser[1::7, 3 % n] = float("nan")
+        fsr[2::7, 1 % n] = float("inf")
+        tr_unit[3::7, 0] = 0.0
+        tr_unit[4::7, n - 1] = float("inf")
+        laser[5::7, 0] = -float("inf")
+        return SystemBatch(laser, ring, fsr, tr_unit)
+
     feas_cases = [
         ("wdm8 natural", WDM_CONFIGS["wdm8-g200"], N_SIDE, N_SIDE),
         ("wdm8 permuted", WDM_CONFIGS["wdm8-g200"].with_orders("permuted"), N_SIDE, N_SIDE),
         ("wdm16", WDM_CONFIGS["wdm16-g200"], N_SIDE, N_SIDE),
         ("wdm32", WDM_CONFIGS["wdm32-g200"], N_SIDE, N_SIDE),
+        ("wdm64", WDM_CONFIGS["wdm64-g200"], 40, N_SIDE),
         ("wdm32 ragged T=10007", WDM_CONFIGS["wdm32-g200"], 1, 10007),
+        ("wdm8 ragged T=10007", WDM_CONFIGS["wdm8-g200"], 1, 10007),
+        ("wdm16 ragged T=10007", WDM_CONFIGS["wdm16-g200"], 1, 10007),
     ]
     for name, cfg, n_l, n_r in feas_cases:
         sys_ = instantiate(cfg, make_units(cfg, seed, n_l, n_r))
-        got = feasibility(*sys_, cfg.s)
-        want = feasibility_plain(*cpu(sys_), cfg.s)
-        for tag, g, w in zip(("ltd", "ltc"), got, want):
-            compare(f"feasibility {name} {tag}", g, w, errs["feasibility"])
-        print(f"[kernels] feasibility {name}: T={sys_.n_trials} bit-exact")
+        check_feasibility(name, sys_, cfg.s)
+        if name == "wdm8 natural":
+            check_feasibility("wdm8 natural NaN and +-inf", plant_nonfinite(sys_), cfg.s,
+                              nonfinite=True)
 
     # d / fsr within an ulp of an integer: laser = ring + m * fsr, nudged.
     gen = torch.Generator().manual_seed(seed)
@@ -384,6 +432,18 @@ def phase_kernels(seed: int) -> dict:
     for tag, g, w in zip(("ltd", "ltc"), got, want):
         compare(f"feasibility near-integer {tag}", g, w, errs["feasibility"])
     print(f"[kernels] feasibility near-integer d/fsr: T={t} bit-exact")
+
+    # Random systems at odd widths (idle lanes; two shifts a lane at N = 40)
+    # with a permuted ordering.
+    t = N_SIDE * N_SIDE
+    for n in (13, 40):
+        sys_ = SystemBatch(*((lo + (hi - lo) * torch.rand(t, n, generator=gen)).cuda()
+                             for lo, hi in ((-5.0, 5.0), (-5.0, 5.0), (4.0, 8.0), (0.9, 1.1))))
+        s = torch.randperm(n, generator=gen).numpy()
+        check_feasibility(f"random N={n} permuted s", sys_, s)
+        if n == 40:
+            check_feasibility(f"random N={n} NaN and +-inf", plant_nonfinite(sys_), s,
+                              nonfinite=True)
 
     for name, args, vis, max_alias, e in table_cases(seed):
         kw = dict(max_alias=max_alias, max_entries=e)
@@ -441,6 +501,8 @@ def phase_matching(seed: int) -> dict:
         ("wdm32", WDM_CONFIGS["wdm32-g200"], N_SIDE, N_SIDE),
         ("wdm64", WDM_CONFIGS["wdm64-g200"], 40, N_SIDE),
         ("wdm32 ragged", WDM_CONFIGS["wdm32-g200"], 1, 10007),
+        ("wdm8 ragged", WDM_CONFIGS["wdm8-g200"], 1, 10007),
+        ("wdm16 ragged", WDM_CONFIGS["wdm16-g200"], 1, 10007),
     ]
     for name, cfg, n_l, n_r in cells:
         sys_ = instantiate(cfg, make_units(cfg, seed, n_l, n_r))
@@ -454,9 +516,23 @@ def phase_matching(seed: int) -> dict:
             reach = torch.rand(N_SIDE * N_SIDE, n, n, generator=gen) < density
             reach[:, :, n - 1] |= torch.rand(N_SIDE * N_SIDE, n, generator=gen) < 0.5
             check_match(f"random density {density}", adjacency_bitmask(reach.cuda()))
-    for n in (12, 32):
-        w = torch.randint(0, 4, (N_SIDE * N_SIDE, n, n), generator=gen)
+    # Tie-heavy weights, at every lane shape (groups of 8, 16, 32 lanes with
+    # idle lanes at N = 5, two lines a lane at N = 33 and 64); the plain
+    # version is slow on the card, so beyond the first two at 2,000 trials.
+    for n, t in ((12, N_SIDE * N_SIDE), (32, N_SIDE * N_SIDE), (5, 2000), (8, 2000),
+                 (16, 2000), (33, 2000), (64, 2000)):
+        w = torch.randint(0, 4, (t, n, n), generator=gen)
         check_bottleneck("tie-heavy integers 0-3", w.to(torch.float32).cuda())
+
+    # Rows and columns of +inf weights: rings no finite weight reaches, whose
+    # free lines all sit at +inf (the search then takes line 0), and trials
+    # with no finite perfect matching.
+    cfg = WDM_CONFIGS["wdm16-g200"]
+    w = scaled_residual(instantiate(cfg, make_units(cfg, seed, 20, N_SIDE)))
+    w[0::3, 1, :] = float("inf")
+    w[1::3, :, 2] = float("inf")
+    w[2::6, 0:2, :] = float("inf")
+    check_bottleneck("wdm16 rows and columns of +inf", w)
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -560,16 +636,13 @@ def phase_main(seed: int) -> dict:
 
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core import api
-    from repro_torch.kernels.feasibility import feasibility
-    from repro_torch.kernels.table_build import build_tables
 
     cells = []
     for key, order in MAIN_CELLS:
         cfg = WDM_CONFIGS[key].with_orders(order)
         cells.append((f"{key}/{order}", cfg, api.make_units(cfg, seed, N_SIDE, N_SIDE)))
 
-    feasibility.launches = 0
-    build_tables.launches = 0
+    wrappers = reset_launches()
     out = {}
     for name, cfg, units in cells:
         for scheme in SCHEMES:
@@ -578,10 +651,10 @@ def phase_main(seed: int) -> dict:
             out[name, "afp", policy] = api.evaluate_policy(cfg, units, policy, TR)
             out[name, "min_tr", policy] = api.policy_min_tr(cfg, units, policy)
     torch.cuda.synchronize()
-    launches = {"feasibility": feasibility.launches, "table_build": build_tables.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     print(f"[main] launches on the main path: {launches}")
-    for k, v in launches.items():
-        if v == 0:
+    for k in ("feasibility", "table_build"):
+        if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
 
     t = N_SIDE * N_SIDE
@@ -1009,13 +1082,11 @@ def main() -> int:
     max_err = phase_kernels(args.seed)
     max_err.update(phase_matching(args.seed))
     max_err.update(phase_probe(args.seed))
-    launches = phase_main(args.seed)
-    lta_launches = phase_lta(args.seed)
-    launches.update(match=lta_launches["match"], bottleneck=lta_launches["bottleneck"])
-    proto_launches = phase_protocol(args.seed)
-    temporal_launches = phase_temporal(args.seed, N_SIDE)
-    # probe runs only on the protocol engine: its launches on both paths.
-    launches["probe"] = proto_launches["probe"] + temporal_launches["probe"]
+    # Each kernel's launches: the sum over the four paths.
+    paths = (phase_main(args.seed), phase_lta(args.seed), phase_protocol(args.seed),
+             phase_temporal(args.seed, N_SIDE))
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    print(f"[env] launches over the main, LtA, protocol and temporal paths: {launches}")
     rows = phase_timing(args.seed)
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 
