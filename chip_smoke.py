@@ -12,7 +12,13 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             against plain versions run on the CPU, ``match``, ``bottleneck``
             and ``probe`` against plain versions run on the card (WDM8 to
             WDM64, random bitmasks with bits 31 and 63 set, tie-heavy integer
-            weights, a ragged 10,007-trial edge; for ``feasibility`` also
+            weights, a ragged 10,007-trial edge; for ``match`` also staircase
+            graphs (BFS of up to N - 1 levels, walk-backs of N steps) and
+            graphs where two rings of a level reach one line, at N = 8, 16,
+            32 and 64, random bitmasks at N = 5, 12, 33 and 40 (at 5 and 12
+            also with bits above N set), the temporal path's WDM16 hot-swap
+            adjacency at TR 4.48 with a dead lane and a dead ring, and WDM64
+            ragged at 10,007 trials; for ``feasibility`` also
             random systems at N = 13 and 40 with a permuted s, ragged edges at
             N = 8 and 16, and NaN and +-inf inputs, held against the plain
             version on the card bit for bit and on the CPU up to the NaN's
@@ -44,7 +50,8 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             cold on the wdm16-thermal and wdm16-hotswap drift scenarios at
             TR = 4 x grid spacing).  Per-trial results on a 20 x 20 subset are
             held against the CPU plain path, and every call is timed;
-4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32,
+4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32
+            (``match`` also at WDM16, TR 4.48, the temporal path's input),
             beside its bound: the kernel's device time per launch from a
             ``torch.profiler`` trace, the wrapper's time per call from CUDA
             events over back-to-back calls (which holds the host's cost of
@@ -146,22 +153,25 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     """Device milliseconds per launch of the kernel named ``kernel`` over
     ``reps`` calls of ``fn`` after one warm-up, from a ``torch.profiler``
     trace: the kernel's own time, without the host's cost of issuing it.
-    The mean is over the launches the trace holds (it can miss one)."""
+    The mean is over the launches the trace holds (it can miss some); a
+    trace that holds fewer than half is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and kernel in e.key]
-    count = sum(e.count for e in hits)
-    if count < reps // 2:
-        fail(f"the profiler traced {count} launches of {kernel} in {reps} calls")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count >= reps // 2:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        print(f"[time] the profiler traced {count} launches of {kernel} in {reps} calls")
+    fail(f"three profiler traces held fewer than {reps // 2} launches of {kernel}")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -184,14 +194,64 @@ def table_cost(t: int, n: int, e: int, n_j: int, vis_bytes: int = 0) -> tuple[fl
             t * n * n + 4 * t * n * n * n_j)
 
 
-def match_cost(t: int, n: int) -> tuple[float, float]:
+def match_search(adj) -> tuple[list, int, list, list]:
+    """The matching's search on these inputs, transcribed serially on the
+    host, to count what it needs: (match_wl rows, operations, BFS levels
+    beyond level 0 per ring, walk-back steps per ring).  Operations: per ring
+    one test of its word against the matched lines; per deeper level one
+    masked word per ring whose line is in the frontier; one update per
+    walk-back step."""
+    t, n = adj.shape
+    mask = (1 << n) - 1
+    lowest = lambda w: (w & -w).bit_length() - 1  # noqa: E731
+    out, ops, levels, steps = [], 0, [], []
+    for row in adj.cpu().tolist():
+        words = [w & mask for w in row]
+        match_wl, parent, matched = [-1] * n, [-1] * n, 0
+        for i in range(n):
+            free = words[i] & ~matched
+            if free:                         # level 0: a path of one edge
+                parent[lowest(free)] = i
+            frontier = visited = 0 if free else words[i]
+            for k in range(n):
+                if frontier >> k & 1:
+                    parent[k] = i
+            depth = 0
+            while frontier:                  # deeper levels, rings in order
+                depth += 1
+                reached = 0
+                for r in range(n):
+                    if match_wl[r] >= 0 and frontier >> match_wl[r] & 1:
+                        ops += 1
+                        fresh = words[r] & ~(visited | reached)
+                        for k in range(n):
+                            if fresh >> k & 1:
+                                parent[k] = r
+                        reached |= fresh
+                visited |= reached
+                free = reached & ~matched
+                frontier = 0 if free else reached
+            k, n_steps = lowest(free), 0
+            if free:
+                matched |= 1 << k
+            while k >= 0:
+                n_steps += 1
+                r = parent[k]
+                prev, match_wl[r] = match_wl[r], k
+                k = -1 if r == i or prev < 0 else prev
+            ops += 1 + n_steps
+            levels.append(depth)
+            steps.append(n_steps)
+        out.append(match_wl)
+    return out, ops, levels, steps
+
+
+def match_cost(t: int, n: int, n_ops: int) -> tuple[float, float]:
     """Bytes: the adjacency at the function's own size, N bits per ring
     (ceil(N / 8) bytes; the port's int64 words read more), read; match_wl
-    (T, N) int32 and ok (T,) written.  Operations: the loops every trial runs
-    whatever its graph, the matched-line mask and parent reset of each ring
-    (2N each ring); the BFS beyond them depends on the data and is not
-    counted."""
-    return t * n * -(-n // 8) + t * n * 4 + t, 2 * t * n * n
+    (T, N) int32 and ok (T,) written.  Operations: ``match_search``'s count
+    on these inputs."""
+    return t * n * -(-n // 8) + t * n * 4 + t, n_ops
 
 
 def bottleneck_cost(t: int, n: int) -> tuple[float, float]:
@@ -335,6 +395,32 @@ def table_cases(seed: int):
                    max_alias, 3 * n)
 
 
+def deep_match_graphs(n: int, t: int, gen):
+    """Phase-2 inputs of ``match`` that force deep and contested searches:
+    (name, (T, N, N) bool reach on the CPU).
+
+    A staircase of m = 2 + t % (N - 1) rings in trial t: ring r < m - 1
+    reaches lines r and r + 1 and takes line r at level 0; ring m - 1
+    reaches line 0 only, and finds line m - 1 free after a BFS of m - 1
+    levels through every earlier ring, then walks back m steps; later rings
+    are random.  Blocks of three rings on three lines, with random extra
+    edges: the block's third ring finds both its lines taken, both rings of
+    the next level reach the block's third line, and the lower ring, which
+    holds the higher line, must win it."""
+    import torch
+
+    r, k = torch.arange(n)[:, None], torch.arange(n)[None, :]
+    m = (2 + torch.arange(t) % (n - 1))[:, None, None]
+    stair = ((k == r) | (k == r + 1)) & (r < m - 1) | (k == 0) & (r == m - 1)
+    yield f"staircase N={n}", stair | (r >= m) & (torch.rand(t, n, n, generator=gen) < 0.3)
+    block = torch.zeros(n, n, dtype=torch.bool)
+    for b in range(0, n - 2, 3):
+        for ring, lines in ((b, [b + 1, b + 2]), (b + 1, [b, b + 2]), (b + 2, [b, b + 1])):
+            block[ring, lines] = True
+    block[n - n % 3:] = True
+    yield f"lowest ring wins N={n}", block | (torch.rand(t, n, n, generator=gen) < 0.04)
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -465,11 +551,12 @@ def phase_matching(seed: int) -> dict:
     for the bottleneck), bound by op launch and too slow for the CPU here."""
     import torch
 
-    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.configs.wdm import WDM_CONFIGS, drift_timeline
     from repro_torch.core.api import make_units
     from repro_torch.core.matching import adjacency_bitmask
     from repro_torch.core.reach import reach_matrix, scaled_residual
     from repro_torch.core.sampling import instantiate
+    from repro_torch.core.variations import Variations, apply_axis_transforms
     from repro_torch.kernels.bitmask_match import (
         bottleneck_threshold,
         bottleneck_threshold_plain,
@@ -533,6 +620,44 @@ def phase_matching(seed: int) -> dict:
     w[1::3, :, 2] = float("inf")
     w[2::6, 0:2, :] = float("inf")
     check_bottleneck("wdm16 rows and columns of +inf", w)
+
+    # Deep and contested searches at every lane shape (see deep_match_graphs),
+    # from a generator of their own, so the cases above keep their inputs.
+    gen = torch.Generator().manual_seed(seed + 1)
+    t = N_SIDE * N_SIDE
+    for n in (8, 16, 32, 64):
+        for name, reach in deep_match_graphs(n, t, gen):
+            check_match(name, adjacency_bitmask(reach.cuda()))
+    # Random bitmasks at odd widths: idle lanes in groups of 8 and 16, two
+    # rings and lines a lane at 33 and 40.  At 5 and 12 also with random bits
+    # above N in every word, which the kernel and the plain version ignore.
+    for n in (5, 12, 33, 40):
+        for density in (0.1, 0.3, 0.6):
+            reach = torch.rand(t, n, n, generator=gen) < density
+            check_match(f"random N={n} density {density}", adjacency_bitmask(reach.cuda()))
+        if n < 32:
+            hi, lo = torch.randint(0, 2 ** 32, (2, t, n), generator=gen)
+            words = adjacency_bitmask(torch.rand(t, n, n, generator=gen) < 0.3)
+            words |= ((hi << 32) | lo) & ~((1 << n) - 1)
+            check_match(f"random N={n} bits above N set", words.cuda())
+    # The temporal path's feasibility input: wdm16-hotswap at step 3, drifted,
+    # at TR = 4 grid spacings, lane 5 dead (a zero column), and ring 11 dead
+    # too (a zero row, as a ring_kill event leaves it).
+    cfg, tl = drift_timeline("wdm16-hotswap")
+    sys_ = instantiate(cfg, make_units(cfg, seed, N_SIDE, N_SIDE))
+    ring_drift, laser_drift, lane_alive, ring_alive = (a[3] for a in tl)
+    sys_ = apply_axis_transforms(
+        sys_, Variations(thermal_drift=ring_drift, comb_wander=laser_drift), cfg)
+    ring_alive = ring_alive.clone()
+    ring_alive[11] = False
+    alive = lane_alive[None, :] & ring_alive[:, None]
+    tr = TEMPORAL_TR_X * cfg.grid.grid_spacing
+    check_match(f"wdm16-hotswap step 3 TR={tr!r} dead lane 5 and ring 11",
+                adjacency_bitmask(reach_matrix(sys_, tr) & alive[None]))
+    cfg = WDM_CONFIGS["wdm64-g200"]
+    sys_ = instantiate(cfg, make_units(cfg, seed, 1, 10007))
+    for tr in (4.5, TR):
+        check_match(f"wdm64 ragged TR={tr}", adjacency_bitmask(reach_matrix(sys_, tr)))
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -968,6 +1093,20 @@ def phase_timing(seed: int) -> dict:
         return (device_ms(fn, reps, kernel), cuda_ms(fn, reps),
                 cuda_ms(plain, plain_reps), *bound_ms(*cost))
 
+    def timed_match(label, adj):
+        """The ``match`` row, its operations counted by ``match_search`` on
+        these inputs, whose ``match_wl`` the kernel's must equal."""
+        found, n_ops, levels, steps = match_search(adj)
+        if not torch.equal(torch.tensor(found, dtype=torch.int32), perfect_matching(adj)[0].cpu()):
+            fail(f"match {label}: the kernel differs from the serial search")
+        t, n = adj.shape
+        print(f"[time] match {label}: the search on these inputs (host counts, "
+              f"{t * n} rings): BFS levels a ring, level 0 counted, mean "
+              f"{1 + sum(levels) / len(levels)!r} max {1 + max(levels)}; walk-back steps "
+              f"mean {sum(steps) / len(steps)!r} max {max(steps)}; {n_ops} operations")
+        return timed("match_kernel", lambda: perfect_matching(adj),
+                     lambda: perfect_matching_plain(adj), 20, 2, match_cost(t, n, n_ops))
+
     rows = {}
     for key in ("wdm8-g200", "wdm16-g200", "wdm32-g200"):
         cfg = WDM_CONFIGS[key]
@@ -985,10 +1124,15 @@ def phase_timing(seed: int) -> dict:
             "table_build_kernel", lambda: build_tables(*args, **kw),
             lambda: build_tables_plain(*args, **kw), 20, 3,
             table_cost(t, n, min(3 * n, n * n_j), n_j))
-        adj = adjacency_bitmask(reach_matrix(sys_, TR))
-        rows["match", key] = timed(
-            "match_kernel", lambda: perfect_matching(adj),
-            lambda: perfect_matching_plain(adj), 20, 2, match_cost(t, n))
+        names = ["feasibility", "table_build", "match", "bottleneck", "probe C=1",
+                 "probe C=4"]
+        rows["match", key] = timed_match(f"{key} TR={TR}",
+                                         adjacency_bitmask(reach_matrix(sys_, TR)))
+        if key == "wdm16-g200":  # the temporal path's TR: 32 of the smoke's 66 launches
+            tr_t = TEMPORAL_TR_X * cfg.grid.grid_spacing
+            names.append(f"match TR={tr_t!r}")
+            rows[names[-1], key] = timed_match(
+                f"{key} TR={tr_t!r}", adjacency_bitmask(reach_matrix(sys_, tr_t)))
         w = scaled_residual(sys_)
         rows["bottleneck", key] = timed(
             "bottleneck_kernel", lambda: bottleneck_threshold(w),
@@ -1006,8 +1150,7 @@ def phase_timing(seed: int) -> dict:
                 lambda: masked_research_plain(wl, taken, floor), 50, 20, (n_bytes, n_ops))
             print(f"[time] probe C={c} {key}: bound counts {n_bytes} bytes of the sectors "
                   f"it scans ({row_bytes} with whole rows: {bound_ms(row_bytes, 0)[0]!r} ms)")
-        for kname in ("feasibility", "table_build", "match", "bottleneck",
-                      "probe C=1", "probe C=4"):
+        for kname in names:
             ms, call_ms, plain, bound, by = rows[kname, key]
             print(f"[time] {kname} {key} T={t}: kernel {ms!r} ms on the device, "
                   f"{call_ms!r} ms per wrapper call, plain {plain!r} ms, "

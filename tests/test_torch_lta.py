@@ -211,6 +211,25 @@ def test_lta_policy_entry_points_match_reference(name):
         assert round(a_t * 64) == round(a_j * 64) and abs(a_t - a_j) <= 1e-7
 
 
+@pytest.mark.parametrize("n", [16, 32])
+def test_lta_policy_wide_matches_reference_impl(n):
+    """WDM16 and WDM32 on 30 trials: ideal LtA success per trial (the
+    ``match`` kernel's plain version) against the reference core, and
+    ``evaluate_policy("lta")`` against the reference's un-jitted body, AFP
+    as an exact failure count and within 1e-7."""
+    jcfg, ju, js, tcfg, tu, ts = _systems(wdm_config(n_ch=n), 3, 5, 6)
+    fails = 0
+    for tr in (2.0, 4.48, 8.96):
+        ok_t = tideal.success(ts, "lta", tcfg.s, tr)
+        _eq(ok_t.numpy(), jmatch.has_perfect_matching(jreach(js, tr)))
+        a_t = float(tapi.evaluate_policy(tcfg, tu, "lta", tr))
+        a_j = float(japi.evaluate_policy_impl(jcfg, ju, "lta", tr))
+        assert round(a_t * 30) == round(a_j * 30) == int((~ok_t).sum())
+        assert abs(a_t - a_j) <= 1e-7
+        fails += int((~ok_t).sum())
+    assert fails > 0
+
+
 def test_fig17_seq_retry_cafp_counts_match_live_reference():
     """fig17's setting: WDM8_G200, the reference's units at seed 17 (24 x 24),
     the paper's 12-point TR sweep.  CAFP failure counts equal the reference's

@@ -48,11 +48,12 @@ CFGS = {
     "wdm8-permuted": wdm_config(n_ch=8).with_orders("permuted"),
 }
 SCHEMES = ("seq", "rs_ssm", "vtrs_ssm")
+WIDE = {"wdm16-natural": wdm_config(n_ch=16), "wdm32-natural": wdm_config(n_ch=32)}
 
 
 def _pair(name, seed=3, n_laser=8, n_ring=8):
     """The reference's unit samples and config, and the port's copies."""
-    jcfg = CFGS[name]
+    jcfg = {**CFGS, **WIDE}[name]
     ju = japi.make_units(jcfg, seed, n_laser, n_ring)
     tu = units_from_numpy(*(np.asarray(a) for a in ju), device="cpu")
     return jcfg, ju, config_from_fields(**dataclasses.asdict(jcfg)), tu
@@ -169,8 +170,26 @@ def _counts(x):
 @pytest.mark.parametrize("name", ["wdm4-permuted", "wdm8-natural", "wdm8-permuted"])
 def test_evaluate_scheme_matches_reference(name, scheme, tr):
     jcfg, ju, tcfg, tu = _pair(name)
-    jr = japi.evaluate_scheme(jcfg, ju, scheme, tr)
-    r = tapi.evaluate_scheme(tcfg, tu, scheme, tr)
+    _hold_eval(tapi.evaluate_scheme(tcfg, tu, scheme, tr),
+               japi.evaluate_scheme(jcfg, ju, scheme, tr))
+
+
+@pytest.mark.parametrize("tr", [4.48, 8.96])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("name", list(WIDE))
+def test_evaluate_scheme_wide_matches_reference_impl(name, scheme, tr):
+    """WDM16 and WDM32 on 30 trials, against the reference's un-jitted body
+    (its jitted ``instantiate`` fuses a multiply-add that the port does not
+    take; see test_torch_lta.py).  TR 4.48 is the temporal path's operating
+    point, where the ideal arbiter fails on some trials."""
+    jcfg, ju, tcfg, tu = _pair(name, n_laser=5, n_ring=6)
+    _hold_eval(tapi.evaluate_scheme(tcfg, tu, scheme, tr),
+               japi.evaluate_scheme_impl(jcfg, ju, scheme, tr))
+
+
+def _hold_eval(r, jr):
+    """Per-trial outcomes exactly, AFP and CAFP as failure counts exactly,
+    the float metrics within 1e-7."""
     _eq(r.ideal_ok.numpy(), jr.ideal_ok)
     _eq(r.alg_success.numpy(), jr.alg_success)
     t = r.ideal_ok.shape[0]
