@@ -32,7 +32,11 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             C = 1 and 4 rows, E = 39 rows on and off 16-byte alignment,
             floors -1, 0, E and E + 3, line ids >= L, all-taken and
             all-invalid rows, and every re-search of the first two rounds of
-            a WDM16 protocol run);
+            a WDM16 protocol run); and ``table_build`` and ``match`` at the
+            sweep engine's flattened sizes (fig4's 8 x 12 grid at WDM8 as one
+            batch of 960,000 trials, 30 points of the WDM32 TR axis as
+            300,000 trials with 7.4 GB of tables), held on the first and the
+            last 10,007 trials;
 3. main     drive each ported path with the launch counts set to 0 just
             before and read just after (each kernel's ``launches`` in the
             kernels line is its sum over the paths), at 100 x 100 = 10,000
@@ -48,8 +52,16 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             WDM32, ``run_protocol`` with stats for the depth ladder 1, 2, 4,
             None at WDM8); and the temporal path (``run_timeline`` warm and
             cold on the wdm16-thermal and wdm16-hotswap drift scenarios at
-            TR = 4 x grid spacing).  Per-trial results on a 20 x 20 subset are
-            held against the CPU plain path, and every call is timed;
+            TR = 4 x grid spacing); and the sweep path (``phase_sweep``: the
+            fig4, fig14, fig5 and fig19 grids, a WDM32 TR axis and a timeline
+            sweep, each a chunk of grid points run as one batch of trials,
+            held against the same grid one point a chunk, against the port's
+            per-point ``sweep_reference`` on a sub-grid, and timed).
+            Per-trial results on a 20 x 20 subset are held against the CPU
+            plain path, and every call is timed.  Then ``BENCH_sweep.json``'s
+            fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
+            card from units drawn as the benchmarks drew them
+            (``phase_records``), exactly as counts of 576 trials;
 4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32
             (``match`` also at WDM16, TR 4.48, the temporal path's input),
             beside its bound: the kernel's device time per launch from a
@@ -97,6 +109,17 @@ DRIFT_CELLS = ("wdm16-thermal", "wdm16-hotswap")
 TEMPORAL_TR_X = 4.0            # fig20's operating point, in grid spacings
 N_SIDE = 100                   # 100 lasers x 100 rings = 10,000 trials
 SUB_SIDE = 20                  # CPU-checked subset: 20 x 20 trials
+RECORD_SIDE = 24               # BENCH_sweep.json's trials: 24 x 24 = 576
+#: The seed of each benchmark whose records the sweep phase holds.
+RECORD_SEEDS = {"fig4": 4, "fig5": 5, "fig14": 9, "fig17": 17, "fig19": 21}
+FIG5_RLV_X = (0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0)   # in grid spacings
+FIG4_CASES = (("LtA-N/A", "lta", "natural"), ("LtA-P/A", "lta", "permuted"),
+              ("LtC-N/N", "ltc", "natural"), ("LtC-P/P", "ltc", "permuted"),
+              ("LtD-N/N", "ltd", "natural"))
+FIG17_SCHEMES = ("seq_retry_r1", "seq_retry_r2", "seq_retry_r4", "seq_retry",
+                 "seq_retry_phys")
+FIG19_SCHEMES = ("seq_retry", "protocol_lta_h1", "protocol_lta_h2", "protocol_lta_h4",
+                 "protocol_lta")
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -283,12 +306,45 @@ def probe_cost(wl, taken, floor, first, found) -> tuple[float, float, float]:
     return 32 * sectors + fixed, 3 * int(read.sum()), t * c * e * 4 + fixed
 
 
-def low_tr() -> float:
-    """fig19's TR point 4 (the paper's sweep 0.25 .. 8 grid spacings, 12
-    points, float32): 3.436 nm, where seq_retry leaves residual CAFP."""
+def tr_sweep(n_ch: int = 8, spacing: float = 1.12):
+    """The benchmarks' TR axis (``benchmarks/common.py``, copied: the card's
+    machine has no JAX): 12 points from 0.25 grid spacings to the FSR."""
     import numpy as np
 
-    return float(np.linspace(0.25 * 1.12, 8 * 1.12, 12).astype(np.float32)[4])
+    return np.linspace(0.25 * spacing, n_ch * spacing, 12).astype(np.float32)
+
+
+def low_tr() -> float:
+    """fig19's TR point 4: 3.436 nm, where seq_retry leaves residual CAFP."""
+    return float(tr_sweep()[4])
+
+
+def rlv_sweep(spacing: float = 1.12):
+    """The benchmarks' sigma_rLV axis (``benchmarks/common.py``, copied)."""
+    import numpy as np
+
+    return np.array([0.25, 0.5, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0], np.float32) * spacing
+
+
+def flat_grid(cfg, units, axes):
+    """A grid's points flattened into one batch, as the sweep engine runs
+    them: (system batch of P * T trials, per-trial TR (P * T,))."""
+    import torch
+
+    from repro_torch.core.sampling import instantiate, per_trial
+    from repro_torch.core.sweep import _grid_points
+    from repro_torch.core.variations import Variations
+
+    names, points, _ = _grid_points(axes)
+    var = Variations(**{n: torch.from_numpy(points[:, i].copy()) for i, n in enumerate(names)})
+    sys_ = instantiate(cfg, units, var)
+    return sys_, per_trial(var.get("tr_mean"), points.shape[0], sys_.n_trials,
+                           sys_.laser.device)
+
+
+def ends(t: int, side: int = 10007):
+    """The first and the last ``side`` trials of T."""
+    return (slice(0, side), slice(t - side, t))
 
 
 def timed_call(fn):
@@ -541,6 +597,7 @@ def phase_kernels(seed: int) -> dict:
         print(f"[kernels] table_build {name}: T={args[0].shape[0]} E={got[0].shape[-1]} "
               f"exact (n_valid max {int(got[2].max())}; {over} of {got[2].numel()} "
               f"rows with more window candidates than E)")
+
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -658,6 +715,62 @@ def phase_matching(seed: int) -> dict:
     sys_ = instantiate(cfg, make_units(cfg, seed, 1, 10007))
     for tr in (4.5, TR):
         check_match(f"wdm64 ragged TR={tr}", adjacency_bitmask(reach_matrix(sys_, tr)))
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_flat_grids(seed: int) -> dict:
+    """Phase 2 at the sweep engine's flattened sizes: a grid's points are
+    one batch of P * 10,000 trials, so the kernels see far more trials than
+    a single point gives them."""
+    import torch
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.api import make_units
+    from repro_torch.core.matching import adjacency_bitmask
+    from repro_torch.core.reach import reach_matrix
+    from repro_torch.kernels.bitmask_match import perfect_matching, perfect_matching_plain
+    from repro_torch.kernels.table_build import build_tables, build_tables_plain
+
+    errs = {"table_build": [], "match": []}
+    # Grid points flattened into the trial axis, as the sweep engine gives
+    # them: fig4's 8 x 12 grid at WDM8 (960,000 trials) and 3 x 10 points of
+    # the WDM32 TR axis (300,000 trials, 7.4 GB of tables); the first and the
+    # last 10,007 trials against the plain version on the CPU.
+    for key, axes in (("wdm8-g200", {"sigma_rlv": rlv_sweep(), "tr_mean": tr_sweep()}),
+                      ("wdm32-g200", {"sigma_rlv": rlv_sweep()[[2, 3, 5]],
+                                      "tr_mean": tr_sweep(32)[:10]})):
+        cfg = WDM_CONFIGS[key]
+        n = cfg.grid.n_ch
+        sys_, tr = flat_grid(cfg, make_units(cfg, seed, N_SIDE, N_SIDE), axes)
+        args = (sys_.laser, sys_.ring, sys_.fsr, tr[:, None] * sys_.tr_unit)
+        kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
+        got = build_tables(*args, **kw)
+        t = args[0].shape[0]
+        for part in ends(t):
+            want = build_tables_plain(*(a[part].cpu() for a in args), **kw)
+            for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
+                compare(f"table_build {key} flattened grid trials {part} {tag}", g[part], w,
+                        errs["table_build"])
+        print(f"[kernels] table_build {key} flattened grid: T={t} ({t // N_SIDE ** 2} points) "
+              f"E={3 * n}, {got[0].numel() * 8 / 1e9:.2f} GB of tables; the first and the "
+              f"last 10007 trials exact")
+        del sys_, tr, args, got
+        torch.cuda.empty_cache()
+    # fig4's 8 x 12 grid at WDM8 flattened into 960,000 trials, as the sweep
+    # engine's direct LtA path gives it; the first and the last 10,007 trials
+    # against the plain version.
+    cfg = WDM_CONFIGS["wdm8-g200"]
+    sys_, tr = flat_grid(cfg, make_units(cfg, seed, N_SIDE, N_SIDE),
+                         {"sigma_rlv": rlv_sweep(), "tr_mean": tr_sweep()})
+    adj = adjacency_bitmask(reach_matrix(sys_, tr))
+    got = perfect_matching(adj)
+    for part in ends(adj.shape[0]):
+        want = perfect_matching_plain(adj[part])
+        compare(f"match flattened grid trials {part} match_wl", got[0][part], want[0],
+                errs["match"])
+        compare(f"match flattened grid trials {part} ok", got[1][part], want[1], errs["match"])
+    print(f"[kernels] match wdm8 flattened fig4 grid: T={adj.shape[0]} (96 points); the first "
+          f"and the last 10007 trials exact ({int(got[1].sum())} perfect)")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -1066,6 +1179,260 @@ def phase_temporal(seed: int, side: int) -> dict:
     return launches
 
 
+def _hold_grid(name, got, want, t, exact_floats=True):
+    """Two sweep results of one grid: tensors equal (float32 bit for bit)
+    with ``exact_floats``, else integer and boolean fields exactly and float
+    shares as integer counts (share x t)."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want) if isinstance(got, tuple) else ((got, want),)):
+        field = got._fields[i] if hasattr(got, "_fields") else "data"
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name} {field}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        if g.dtype == torch.float32 and not exact_floats:
+            g, w = torch.round(g.double() * t), torch.round(w.double() * t)
+        if not torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           w.view(torch.int32) if w.dtype == torch.float32 else w):
+            fail(f"{name} {field}: {int((g != w).sum())} of {g.numel()} elements differ")
+
+
+def sweep_grids() -> list:
+    """The sweep phase's grids at 10,000 trials a point: (name, SweepRequest
+    keyword arguments, warm timing calls, sub-grid indices per axis for the
+    per-point reference or None)."""
+    import numpy as np
+
+    from repro_torch.configs.wdm import WDM_CONFIGS, drift_timeline
+
+    wdm8, wdm32 = WDM_CONFIGS["wdm8-g200"], WDM_CONFIGS["wdm32-g200"]
+    fig4 = {"sigma_rlv": rlv_sweep(), "tr_mean": tr_sweep()}
+    fig14 = {"sigma_rlv": rlv_sweep()[:6], "tr_mean": tr_sweep()}
+    sub4 = {"sigma_rlv": [0, 3, 7], "tr_mean": [2, 5]}
+    sub14 = {"sigma_rlv": [0, 3, 5], "tr_mean": [2, 5]}
+    cfg16, tl = drift_timeline("wdm16-thermal")
+    rlv5 = np.array(FIG5_RLV_X) * wdm32.grid.grid_spacing
+    return [
+        ("fig4 wdm8 LtC-N/N", dict(cfg=wdm8, policy="ltc", axes=fig4), 3, sub4),
+        ("fig4 wdm8 LtA-N/A", dict(cfg=wdm8, policy="lta", axes=fig4), 3, sub4),
+        ("fig4 wdm8 LtA-N/A tr_fast=False", dict(cfg=wdm8, policy="lta", axes=fig4,
+                                                tr_fast=False), 3, sub4),
+        ("fig14 wdm8 natural seq", dict(cfg=wdm8, scheme="seq", axes=fig14), 1, sub14),
+        ("fig14 wdm8 natural vtrs_ssm", dict(cfg=wdm8, scheme="vtrs_ssm", axes=fig14), 1,
+         sub14),
+        ("wdm32 natural vtrs_ssm", dict(cfg=wdm32, scheme="vtrs_ssm",
+                                        axes={"tr_mean": tr_sweep(32)}), 1,
+         {"tr_mean": [0, 5, 11]}),
+        ("fig5 wdm32 lta min_tr", dict(cfg=wdm32, policy="lta", metric="min_tr",
+                                       axes={"sigma_rlv": rlv5}), 3, {"sigma_rlv": [0, 4, 8]}),
+        ("fig19 wdm8 protocol_lta", dict(cfg=wdm8, scheme="protocol_lta",
+                                         axes={"tr_mean": tr_sweep()}), 0,
+         {"tr_mean": [1, 4, 9]}),
+        ("wdm16-thermal protocol_lta timeline",
+         dict(cfg=cfg16, scheme="protocol_lta", axes={"sigma_rlv": [2.24, 4.48]},
+              fixed={"tr_mean": TEMPORAL_TR_X * cfg16.grid.grid_spacing}, timeline=tl), 0,
+         None),
+    ]
+
+
+def phase_sweep(seed: int) -> dict:
+    """The sweep path: each grid of ``sweep_grids`` through ``sweep`` at its
+    automatic chunk size, with the launch counts set to 0 just before and
+    read just after; then per grid its time (CUDA events) beside the
+    per-point loop's (the same grid at ``chunk_size=1``, which it must equal
+    bit for bit), its peak memory beside chunk x per-point bytes, the
+    port's per-point oracle ``sweep_reference`` on a sub-grid, and the CPU
+    plain path on a 20 x 20 subset of the units."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.wdm import drift_timeline
+    from repro_torch.core import api
+    from repro_torch.core.sampling import UnitSamples
+    from repro_torch.core.sweep import (
+        SweepRequest,
+        _auto_chunk,
+        policy_point_bytes,
+        scheme_point_bytes,
+        sweep,
+        sweep_reference,
+    )
+    units = {}
+    grids = []
+    for name, kw, reps, sub in sweep_grids():
+        n = kw["cfg"].grid.n_ch
+        if n not in units:
+            units[n] = api.make_units(kw["cfg"], seed, N_SIDE, N_SIDE)
+        grids.append((name, SweepRequest(units=units[n], **kw), reps, sub))
+
+    wrappers = reset_launches()
+    out, ms, peak = {}, {}, {}
+    for name, req, _, _ in grids:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out[name] = sweep(req).data
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end)
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[sweep] launches on the sweep path: {launches}")
+    for k, w in launches.items():
+        if w == 0:
+            fail(f"kernel {k} was not launched on the sweep path")
+
+    t = N_SIDE * N_SIDE
+    for name, req, reps, sub in grids:
+        wall0 = time.perf_counter()
+        res = out[name]
+        names = tuple(req.axes)
+        n_points = int(np.prod([len(v) for v in req.axes.values()]))
+        run_points = n_points // (len(req.axes["tr_mean"]) if req.policy is not None
+                                  and req.metric == "eval" and req.tr_fast
+                                  and "tr_mean" in req.axes else 1)
+        chunk = _auto_chunk(req.cfg, req.units, run_points, req.scheme)
+        per_point = (scheme_point_bytes(req.cfg, t) if req.scheme is not None
+                     else policy_point_bytes(req.cfg, t))
+        # Shapes and ranges.
+        leaves = res if isinstance(res, tuple) else (res,)
+        lead = tuple(len(v) for v in req.axes.values())
+        for leaf in leaves:
+            if tuple(leaf.shape[:len(lead)]) != lead or leaf.device.type != "cuda":
+                fail(f"{name}: result {tuple(leaf.shape)} on {leaf.device}, axes {lead}")
+            if leaf.dtype == torch.float32 and not bool(torch.isfinite(leaf).all()):
+                fail(f"{name}: non-finite values")
+        warm_ms = cuda_ms(lambda: sweep(req), reps) if reps else ms[name]
+        # The per-point loop: one point a chunk.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = sweep(req.replace(chunk_size=1)).data
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        _hold_grid(f"{name} chunk_size=1 against auto", one, res, t)
+        # The per-point oracle on a sub-grid.
+        checked = "per-point loop"
+        got, sub_req = res, req
+        if sub is not None:
+            sub_req = req.replace(axes={k: np.asarray(req.axes[k])[sub[k]] for k in names})
+            pick = np.ix_(*(sub[k] for k in names))
+            got = (type(res)(*(a[pick] for a in res)) if isinstance(res, tuple)
+                   else res[pick])
+            _hold_grid(f"{name} sweep_reference sub-grid", got, sweep_reference(sub_req).data,
+                       t, exact_floats=req.metric == "min_tr")
+            checked += f", sweep_reference on {int(np.prod([len(i) for i in sub.values()]))} points"
+        # The CPU plain path on a 20 x 20 subset of the units (and on the
+        # sub-grid's points): the same grid on those units on the CPU and on
+        # the card; scheme grids also against the full run's trials.
+        sub_units, idx = _subset(req.units, SUB_SIDE)
+        cpu_kw = {"units": sub_units}
+        if req.timeline is not None:
+            cpu_kw["timeline"] = drift_timeline("wdm16-thermal", device="cpu")[1]
+        cpu = sweep(sub_req.replace(chunk_size=None, **cpu_kw)).data
+        card = sweep(sub_req.replace(units=UnitSamples(*(x.cuda() for x in sub_units)),
+                                     chunk_size=None)).data
+        _hold_grid(f"{name} card against the CPU on the {SUB_SIDE}x{SUB_SIDE} subset", card,
+                   cpu, len(idx))
+        if req.scheme is not None and req.timeline is None:
+            for f in ("alg_success", "ideal_ok"):
+                if not torch.equal(getattr(got, f)[..., idx].cpu(), getattr(cpu, f)):
+                    fail(f"{name} {f} differs from the CPU plain path on the subset")
+        if isinstance(res, tuple) and hasattr(res, "afp"):
+            summary = f"mean CAFP {float(res.cafp.mean())!r}, mean AFP {float(res.afp.mean())!r}"
+        elif isinstance(res, tuple):
+            summary = (f"final-step mean locked {res.locked[..., -1].tolist()}, "
+                       f"probes {res.probes.sum(dim=-1).tolist()}")
+        else:
+            summary = f"values {[round(v, 4) for v in res.reshape(-1)[:12].tolist()]}"
+        print(f"[sweep] {name}: {n_points} points ({run_points} evaluated, chunk {chunk}), "
+              f"{ms[name]!r} ms first call, {warm_ms!r} ms/call, per-point loop "
+              f"(chunk_size=1) {loop_ms!r} ms; peak {peak[name]} bytes above the start "
+              f"against chunk x per-point bytes {min(chunk, run_points) * per_point}; "
+              f"{summary} (equal to the {checked} and to the CPU plain path on the "
+              f"{SUB_SIDE}x{SUB_SIDE} subset; {time.perf_counter() - wall0:.1f} s of checks)")
+    print(f"[sweep] peak device memory of the phase {torch.cuda.max_memory_allocated()} bytes "
+          f"(torch.cuda.max_memory_allocated since the last grid's reset)")
+    return launches
+
+
+def phase_records(device: str = "cuda") -> None:
+    """``BENCH_sweep.json``'s fig4, fig5, fig14, fig17 and fig19 records,
+    recomputed by the port's sweeps on units drawn as the benchmarks drew
+    them (24 x 24 at each benchmark's seed, JAX's earlier threefry layout);
+    AFP and CAFP as counts of 576 trials, exactly; fig5's min TR within 5e-5."""
+    import numpy as np
+
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api
+    from repro_torch.core.sweep import sweep_min_tr, sweep_policy, sweep_scheme
+
+    path = ROOT / "BENCH_sweep.json"
+    if not path.is_file():
+        fail("BENCH_sweep.json is not beside this script")
+    records = {r["name"]: r["derived"] for r in json.loads(path.read_text())["records"]}
+    t = RECORD_SIDE ** 2
+
+    def units(cfg, fig):
+        return api.make_units(cfg, RECORD_SEEDS[fig], RECORD_SIDE, RECORD_SIDE, device=device,
+                              partitionable=False)
+
+    def hold_counts(rec_name, got, want):
+        got = np.rint(np.abs(np.asarray(got.cpu(), np.float64)) * t).astype(np.int64)
+        want = np.rint(np.asarray(want, np.float64) * t).astype(np.int64)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"record {rec_name}: counts {got.tolist()} against the record's "
+                 f"{want.tolist()}")
+
+    held = {}
+    wall0 = time.perf_counter()
+    wdm8, wdm16 = WDM_CONFIGS["wdm8-g200"], WDM_CONFIGS["wdm16-g200"]
+    fig4 = {"sigma_rlv": rlv_sweep(), "tr_mean": tr_sweep()}
+    for case, policy, order in FIG4_CASES:
+        cfg = wdm8.with_orders(order)
+        hold_counts(f"fig4/{case}", sweep_policy(cfg, units(cfg, "fig4"), policy, fig4),
+                    records[f"fig4/{case}"]["shmoo_afp"])
+    hold_counts("fig4/LtA-16", sweep_policy(wdm16, units(wdm16, "fig4"), "lta",
+                                            {"sigma_rlv": rlv_sweep(), "tr_mean": tr_sweep(16)}),
+                records["fig4/LtA-16"]["shmoo_afp"])
+    held["fig4"] = len(FIG4_CASES) + 1
+    worst = 0.0
+    for key, base in WDM_CONFIGS.items():
+        rlvs = np.array(FIG5_RLV_X) * base.grid.grid_spacing
+        for case, policy, order in FIG4_CASES[:4]:
+            cfg = base.with_orders(order)
+            got = sweep_min_tr(cfg, units(cfg, "fig5"), policy, {"sigma_rlv": rlvs})
+            want = np.asarray(records[f"fig5/{key}/{case}"]["min_tr"], np.float64)
+            err = float(np.abs(np.asarray(got.cpu(), np.float64) - want).max())
+            worst = max(worst, err)
+            if not err <= 5e-5:
+                fail(f"record fig5/{key}/{case}: min TR {got.tolist()} against "
+                     f"{want.tolist()} (|diff| {err})")
+            held["fig5"] = held.get("fig5", 0) + 1
+    fig14 = {"sigma_rlv": rlv_sweep()[:6], "tr_mean": tr_sweep()}
+    for order in ("natural", "permuted"):
+        cfg = wdm8.with_orders(order)
+        for scheme in SCHEMES:
+            hold_counts(f"fig14/{order}/{scheme}",
+                        sweep_scheme(cfg, units(cfg, "fig14"), scheme, fig14).cafp,
+                        records[f"fig14/{order}/{scheme}"]["cafp"])
+            held["fig14"] = held.get("fig14", 0) + 1
+    for fig, schemes, prefix in (("fig17", FIG17_SCHEMES, "fig17/"),
+                                 ("fig19", FIG19_SCHEMES, "fig19/wdm8/")):
+        u = units(wdm8, fig)
+        for scheme in schemes:
+            hold_counts(f"{prefix}{scheme}",
+                        sweep_scheme(wdm8, u, scheme, {"tr_mean": tr_sweep()}).cafp,
+                        records[f"{prefix}{scheme}"]["cafp_vs_ideal_lta"])
+            held[fig] = held.get(fig, 0) + 1
+    for fig, n in held.items():
+        extra = f" (max |min TR - record| {worst!r})" if fig == "fig5" else ""
+        print(f"[records] {fig}: {n} BENCH_sweep.json records held, exact as counts of "
+              f"{t} trials{extra}")
+    print(f"[records] {time.perf_counter() - wall0:.1f} s")
+
+
 def phase_timing(seed: int) -> dict:
     """Kernel and plain-version times on the card at the main paths' shapes,
     WDM8, WDM16 (the temporal path's) and WDM32; ``probe`` at C = 1 and 4
@@ -1225,11 +1592,17 @@ def main() -> int:
     max_err = phase_kernels(args.seed)
     max_err.update(phase_matching(args.seed))
     max_err.update(phase_probe(args.seed))
+    t_flat = time.perf_counter()
+    for k, v in phase_flat_grids(args.seed).items():
+        max_err[k] = max(max_err[k], v)
+    print(f"[env] flattened-grid kernel checks {time.perf_counter() - t_flat:.1f} s")
     # Each kernel's launches: the sum over the four paths.
     paths = (phase_main(args.seed), phase_lta(args.seed), phase_protocol(args.seed),
-             phase_temporal(args.seed, N_SIDE))
+             phase_temporal(args.seed, N_SIDE), phase_sweep(args.seed))
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
-    print(f"[env] launches over the main, LtA, protocol and temporal paths: {launches}")
+    print(f"[env] launches over the main, LtA, protocol, temporal and sweep paths: "
+          f"{launches}")
+    phase_records()
     rows = phase_timing(args.seed)
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -10,3 +10,7 @@ plain PyTorch versions run for CPU tensors.  The protocol engine
 (``core.protocol``) carries the ``protocol_*`` schemes and temporal
 re-arbitration (``core.temporal.run_timeline``).
 """
+
+# The core package first: its sweep exports import the kernel wrappers, and
+# the wrappers import core helpers, so core must start initializing first.
+from . import core  # noqa: E402,F401

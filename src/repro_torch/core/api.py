@@ -19,22 +19,24 @@ its retry-budget family, and the protocol-engine schemes ``protocol_lta``
 """
 from __future__ import annotations
 
+from collections.abc import Mapping as _MappingABC
+from collections.abc import Sequence as _SequenceABC
 from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 
-from . import ideal, metrics
+from . import ideal, metrics, prng
 from .grid import ArbitrationConfig
 from .lta_retry import sequential_retry
 from .outcomes import classify
 from .protocol import run_protocol
 from .relation import chain_spec, relation_search
 from .sampling import (SystemBatch, UnitSamples, draw_unit_samples, instantiate,
-                       resolve_device)
+                       per_trial, resolve_device)
 from .search_table import build_search_tables
 from .sequential import sequential_tuning
 from .ssm import Assignment, single_step_matching
-from .variations import Variations, as_variations
+from .variations import Variations, as_variations, point_count
 
 # An arbiter maps (cfg, tables, spec) -> Assignment using only oblivious
 # primitives (entry indices and masking events; never wavelength values).
@@ -105,6 +107,54 @@ def scheme_spec(name: str) -> SchemeSpec:
 
 def registered_schemes() -> tuple[str, ...]:
     return tuple(_SCHEME_REGISTRY)
+
+
+class _SchemeNamesView(_SequenceABC):
+    """Live, read-only sequence view of the registered scheme names (a
+    scheme registered later shows through it)."""
+
+    def __getitem__(self, i):
+        return tuple(_SCHEME_REGISTRY)[i]
+
+    def __len__(self) -> int:
+        return len(_SCHEME_REGISTRY)
+
+    def __contains__(self, name) -> bool:
+        return name in _SCHEME_REGISTRY
+
+    def __iter__(self):
+        return iter(tuple(_SCHEME_REGISTRY))
+
+    def __eq__(self, other):
+        try:
+            return tuple(self) == tuple(other)
+        except TypeError:
+            return NotImplemented
+
+    __hash__ = None
+
+    def __repr__(self) -> str:
+        return f"SCHEMES{tuple(_SCHEME_REGISTRY)}"
+
+
+class _SchemePolicyView(_MappingABC):
+    """Live, read-only mapping view: scheme name -> conditioning policy."""
+
+    def __getitem__(self, name: str) -> str:
+        return _SCHEME_REGISTRY[name].policy
+
+    def __len__(self) -> int:
+        return len(_SCHEME_REGISTRY)
+
+    def __iter__(self):
+        return iter(tuple(_SCHEME_REGISTRY))
+
+    def __repr__(self) -> str:
+        return f"SCHEME_POLICY({dict(self)})"
+
+
+SCHEMES = _SchemeNamesView()
+SCHEME_POLICY = _SchemePolicyView()
 
 
 register_scheme("seq", lambda cfg, tables, spec: sequential_tuning(tables, spec))
@@ -238,6 +288,46 @@ class EvalResult(NamedTuple):
     ideal_ok: torch.Tensor     # (T,) bool
 
 
+class SchemeTrials(NamedTuple):
+    """Per-trial outcomes of a scheme evaluation, all (T,) bool."""
+
+    alg_success: torch.Tensor  # the oblivious scheme arbitrated correctly
+    ideal_ok: torch.Tensor     # the ideal arbiter of its policy succeeds
+    lock_err: torch.Tensor     # ideal succeeds, scheme left a zero/dup lock
+    order_err: torch.Tensor    # ideal succeeds, scheme broke the lane order
+
+
+def _trial_tr(over: Variations, cfg: ArbitrationConfig, sys: SystemBatch):
+    """The operating point: a scalar, or one per trial for per-point values."""
+    return per_trial(over.resolve("tr_mean", cfg), point_count(over), sys.n_trials,
+                     sys.laser.device)
+
+
+def scheme_trials(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    scheme: str,
+    variations: Variations | None = None,
+) -> SchemeTrials:
+    """The per-trial body of ``evaluate_scheme``: instantiate, arbitrate,
+    classify against the scheme's ideal policy.  With per-point variations
+    (1-D tensors, see ``sampling.instantiate``) every point's trials run in
+    one batch, point-major."""
+    over = as_variations(variations)
+    policy = scheme_spec(scheme).policy
+    sys = instantiate(cfg, units, over)
+    tr = _trial_tr(over, cfg, sys)
+    ideal_ok = ideal.success(sys, policy, cfg.s, tr)
+    assign = oblivious_arbitrate(cfg, sys, tr, scheme)
+    out = classify(assign, cfg.s, policy=policy)
+    return SchemeTrials(
+        alg_success=out.success,
+        ideal_ok=ideal_ok,
+        lock_err=(out.zero_lock | out.dup_lock) & ideal_ok,
+        order_err=out.order_err & ideal_ok,
+    )
+
+
 def evaluate_scheme(
     cfg: ArbitrationConfig,
     units: UnitSamples,
@@ -248,22 +338,27 @@ def evaluate_scheme(
     """Instantiate systems, run the scheme, and score CAFP against the
     scheme's ideal policy (Eq. 6)."""
     over = _eval_variations(variations, tr_mean, caller="evaluate_scheme")
-    policy = scheme_spec(scheme).policy
-    tr = over.resolve("tr_mean", cfg)
-    sys = instantiate(cfg, units, over)
-    ideal_ok = ideal.success(sys, policy, cfg.s, tr)
-    assign = oblivious_arbitrate(cfg, sys, tr, scheme)
-    out = classify(assign, cfg.s, policy=policy)
-    lock = (out.zero_lock | out.dup_lock) & ideal_ok
-    order = out.order_err & ideal_ok
+    r = scheme_trials(cfg, units, scheme, over)
     return EvalResult(
-        afp=metrics.afp(ideal_ok),
-        cafp=metrics.cafp(out.success, ideal_ok),
-        lock_err=torch.mean(lock.to(torch.float32)),
-        order_err=torch.mean(order.to(torch.float32)),
-        alg_success=out.success,
-        ideal_ok=ideal_ok,
+        afp=metrics.afp(r.ideal_ok),
+        cafp=metrics.cafp(r.alg_success, r.ideal_ok),
+        lock_err=torch.mean(r.lock_err.to(torch.float32)),
+        order_err=torch.mean(r.order_err.to(torch.float32)),
+        alg_success=r.alg_success,
+        ideal_ok=r.ideal_ok,
     )
+
+
+def policy_trials(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    policy: str,
+    variations: Variations | None = None,
+) -> torch.Tensor:
+    """The per-trial body of ``evaluate_policy``: (T,) bool ideal success."""
+    over = as_variations(variations)
+    sys = instantiate(cfg, units, over)
+    return ideal.success(sys, policy, cfg.s, _trial_tr(over, cfg, sys))
 
 
 def evaluate_policy(
@@ -275,9 +370,7 @@ def evaluate_policy(
 ) -> torch.Tensor:
     """Ideal-model policy evaluation: AFP at a given mean tuning range."""
     over = _eval_variations(variations, tr_mean, caller="evaluate_policy")
-    tr = over.resolve("tr_mean", cfg)
-    sys = instantiate(cfg, units, over)
-    return metrics.afp(ideal.success(sys, policy, cfg.s, tr))
+    return metrics.afp(policy_trials(cfg, units, policy, over))
 
 
 def policy_trial_min_tr(
@@ -286,7 +379,8 @@ def policy_trial_min_tr(
     policy: str,
     variations: Variations | None = None,
 ) -> torch.Tensor:
-    """(T,) per-trial ideal minimum mean TR at the given variation overrides."""
+    """(T,) per-trial ideal minimum mean TR at the given variation overrides
+    (every point's trials, for per-point overrides)."""
     over = _eval_variations(variations, None, caller="policy_min_tr",
                             allow_tr=False)
     sys = instantiate(cfg, units, over)
@@ -305,12 +399,36 @@ def policy_min_tr(
 
 
 def make_units(cfg: ArbitrationConfig, seed: int, n_laser: int, n_ring: int,
-               device=None) -> UnitSamples:
-    """Unit samples drawn on the CPU from ``torch.Generator`` seeded with
-    ``seed``, then moved to ``device`` (CUDA unless named): one seed gives the
-    same units on every device."""
+               device=None, *, partitionable: bool = True) -> UnitSamples:
+    """The reference's unit samples for ``seed``, bit for bit: its threefry
+    draws (``core.prng``) made on the CPU, then moved to ``device`` (CUDA
+    unless named).  ``partitionable=True`` is JAX's default counter layout,
+    the one the reference's ``make_units`` draws under; ``False`` is the
+    earlier layout, under which ``BENCH_sweep.json`` was recorded."""
     dev = resolve_device(device)
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    units = draw_unit_samples(gen, cfg.grid.n_ch, n_laser, n_ring)
+    key = prng.key_from_seed(seed)
+    units = draw_unit_samples(key, cfg.grid.n_ch, n_laser, n_ring,
+                              partitionable=partitionable)
     return UnitSamples(*(u.to(dev) for u in units))
 
+
+def shmoo(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    sigma_rlv_values,
+    tr_values,
+    *,
+    policy: str | None = None,
+    scheme: str | None = None,
+) -> torch.Tensor:
+    """AFP (policy) or CAFP (scheme) over a sigma_rLV x TR grid (Fig. 4/14),
+    through the sweep engine (see ``core.sweep``)."""
+    from .sweep import SweepRequest, sweep  # local: sweep imports this module
+
+    if (policy is None) == (scheme is None):
+        raise ValueError("exactly one of policy/scheme required")
+    res = sweep(SweepRequest(
+        cfg=cfg, units=units, policy=policy, scheme=scheme,
+        axes={"sigma_rlv": sigma_rlv_values, "tr_mean": tr_values},
+    ))
+    return res.data if policy is not None else res.data.cafp

@@ -15,7 +15,7 @@ import torch
 from ..kernels.bitmask_match import bottleneck_threshold
 from ..kernels.feasibility import feasibility, per_shift_min_tr
 from .matching import has_perfect_matching
-from .reach import as_f32, reach_matrix, scaled_residual
+from .reach import reach_matrix, scaled_residual, trial_value
 from .sampling import SystemBatch
 
 
@@ -51,7 +51,8 @@ def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
 
 
 def success(sys: SystemBatch, policy: str, s, tr_mean) -> torch.Tensor:
-    """(T,) bool ideal arbitration success at the given mean tuning range."""
+    """(T,) bool ideal arbitration success at the given mean tuning range
+    (a scalar, or one per trial)."""
     if policy == "lta":
         return has_perfect_matching(reach_matrix(sys, tr_mean))
-    return min_tr(sys, policy, s) <= as_f32(tr_mean, sys.laser.device)
+    return min_tr(sys, policy, s) <= trial_value(tr_mean, sys.laser.device, 1)

@@ -30,12 +30,21 @@ def scaled_residual(sys: SystemBatch) -> torch.Tensor:
     return tuning_residual(sys) / sys.tr_unit[:, :, None]
 
 
-def reach_matrix(sys: SystemBatch, tr_mean: float) -> torch.Tensor:
-    """(T, N, N) bool: ring i can be tuned onto laser k at the given TR mean."""
-    return scaled_residual(sys) <= as_f32(tr_mean, sys.laser.device)
+def reach_matrix(sys: SystemBatch, tr_mean) -> torch.Tensor:
+    """(T, N, N) bool: ring i can be tuned onto laser k at the given TR mean
+    (a scalar, or one per trial)."""
+    return scaled_residual(sys) <= trial_value(tr_mean, sys.laser.device, 3)
 
 
 def as_f32(value, device) -> torch.Tensor:
     """A scalar operating point as a float32 tensor, so comparisons and
     products round it to float32 exactly as the reference does."""
     return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def trial_value(value, device, ndim: int) -> torch.Tensor:
+    """An operating point as float32: a scalar as a 0-d tensor, a (T,) one
+    value per trial (a batch of grid points) shaped (T, 1, ...) to broadcast
+    against a (T, ...) tensor of ``ndim`` dims."""
+    v = as_f32(value, device)
+    return v if v.dim() == 0 else v.reshape((-1,) + (1,) * (ndim - 1))

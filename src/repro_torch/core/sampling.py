@@ -11,8 +11,10 @@ from typing import NamedTuple
 
 import torch
 
+from . import prng
 from .grid import ArbitrationConfig
-from .variations import Variations, apply_axis_transforms, as_variations
+from .variations import (Variations, apply_axis_transforms, as_variations, is_per_point,
+                         point_count, transform_axes)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,20 +63,38 @@ class SystemBatch(NamedTuple):
         return self.laser.shape[1]
 
 
-def draw_unit_samples(generator: torch.Generator, n_ch: int, n_laser: int,
-                      n_ring: int) -> UnitSamples:
-    """Unit deviates from a CPU ``torch.Generator`` (on the CPU)."""
-    def u(*shape):
-        return torch.empty(shape, dtype=torch.float32).uniform_(
-            -1.0, 1.0, generator=generator)
+def draw_unit_samples(key, n_ch: int, n_laser: int, n_ring: int, *,
+                      partitionable: bool = True) -> UnitSamples:
+    """Unit deviates from a threefry key (``prng.key_from_seed``), on the CPU:
+    the reference's draw bit for bit, ``split(key, 5)`` giving the keys of
+    u_go, u_llv, u_rlv, u_fsr and u_tr.  ``partitionable`` selects JAX's
+    counter layout (its ``jax_threefry_partitionable`` switch)."""
+    keys = prng.split(key, 5, partitionable=partitionable)
+
+    def u(k, *shape):
+        return torch.from_numpy(prng.uniform(keys[k], shape, -1.0, 1.0,
+                                             partitionable=partitionable))
 
     return UnitSamples(
-        u_go=u(n_laser, 1),
-        u_llv=u(n_laser, n_ch),
-        u_rlv=u(n_ring, n_ch),
-        u_fsr=u(n_ring, n_ch),
-        u_tr=u(n_ring, n_ch),
+        u_go=u(0, n_laser, 1),
+        u_llv=u(1, n_laser, n_ch),
+        u_rlv=u(2, n_ring, n_ch),
+        u_fsr=u(3, n_ring, n_ch),
+        u_tr=u(4, n_ring, n_ch),
     )
+
+
+def _f32(value, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def per_trial(value, n_points: int, n_trials: int, device):
+    """An axis value per trial: a per-point (P,) value repeated over each
+    point's ``n_trials // P`` trials as a (P*T,) float32 tensor; a scalar is
+    returned as it is."""
+    if not is_per_point(value):
+        return value
+    return _f32(value, device).repeat_interleave(n_trials // n_points)
 
 
 def instantiate(
@@ -88,37 +108,64 @@ def instantiate(
     overrides; unset axes fall back to the config.  Registered axes with a
     ``transform`` hook (e.g. ``thermal_drift``) are applied after the core
     sampling math; ``tr_mean`` is ignored here (the tuning range is an
-    evaluation-time quantity).  The arithmetic follows the reference term
-    for term, so the batch equals it bit for bit on the same units.
+    evaluation-time quantity).
+
+    Grid points: an override may be a 1-D (P,) tensor, one value per point
+    (all such overrides share P).  The batch then holds P * L * R trials,
+    point-major (trial = p * T + l * R + r), and each point's rows equal the
+    single-point batch at that point's values.
+
+    Every override is rounded to float32 before it meets a tensor, as the
+    reference's jitted scalars are, so ``sigma_llv_frac * grid_spacing`` is a
+    float32 product (the un-jitted reference takes a Python float's product
+    in double precision); config defaults are double-precision constants.
+    The rest of the arithmetic follows the reference's un-jitted
+    ``instantiate`` term for term, bit for bit on the same units.
     """
     over = as_variations(variations)
     grid = cfg.grid
     dev = units.u_llv.device
-    s_go = over.resolve("sigma_go", cfg)
-    s_llv = over.resolve("sigma_llv_frac", cfg) * grid.grid_spacing
-    s_rlv = over.resolve("sigma_rlv", cfg)
-    s_fsr = over.resolve("sigma_fsr_frac", cfg)
-    s_tr = over.resolve("sigma_tr_frac", cfg)
-    fsr0 = over.resolve("fsr_mean", cfg)
+    n_points = point_count(over)
+
+    def scale(name, factor=None):
+        """(P, 1, 1) float32 override values, or the config default."""
+        if name not in over:
+            default = over.resolve(name, cfg)
+            return default if factor is None else default * factor
+        value = _f32(over.get(name), dev).reshape(-1, 1, 1)
+        return value if factor is None else value * factor
+
+    s_go = scale("sigma_go")
+    s_llv = scale("sigma_llv_frac", grid.grid_spacing)
+    s_rlv = scale("sigma_rlv")
+    s_fsr = scale("sigma_fsr_frac")
+    s_tr = scale("sigma_tr_frac")
+    fsr0 = scale("fsr_mean")
 
     # Lasers: lambda_i = grid_i + Delta_gO + Delta_lLV,i           (Eq. 3)
     laser_grid = torch.from_numpy(grid.laser_grid()).to(dev)
-    laser = laser_grid[None, :] + s_go * units.u_go + s_llv * units.u_llv   # (L, N)
+    laser = laser_grid + s_go * units.u_go + s_llv * units.u_llv   # (P, L, N)
     # Rings: lambda_i = grid(r_i) - lambda_rB + Delta_rLV,i        (Eq. 4)
     ring_grid = torch.from_numpy(grid.ring_grid(cfg.r)).to(dev)
-    ring = ring_grid[None, :] + s_rlv * units.u_rlv                          # (R, N)
-    fsr = fsr0 * (1.0 + s_fsr * units.u_fsr)                                 # (R, N)
-    tr_unit = 1.0 + s_tr * units.u_tr                                        # (R, N)
+    ring = ring_grid + s_rlv * units.u_rlv                          # (P, R, N)
+    fsr = fsr0 * (1.0 + s_fsr * units.u_fsr)                        # (P, R, N)
+    tr_unit = 1.0 + s_tr * units.u_tr                               # (P, R, N)
 
-    L, R, N = laser.shape[0], ring.shape[0], laser.shape[1]
-    T = L * R
-    # Cross product lasers x rings -> T trials (trial = l * R + r), dense:
-    # with one laser or one ring sample ``reshape`` alone would keep a
-    # stride-0 view, and the kernels take contiguous rows.
-    sys = SystemBatch(
-        laser=laser[:, None, :].expand(L, R, N).reshape(T, N).contiguous(),
-        ring=ring[None, :, :].expand(L, R, N).reshape(T, N).contiguous(),
-        fsr=fsr[None, :, :].expand(L, R, N).reshape(T, N).contiguous(),
-        tr_unit=tr_unit[None, :, :].expand(L, R, N).reshape(T, N).contiguous(),
-    )
-    return apply_axis_transforms(sys, over, cfg)
+    L, R, N = units.u_llv.shape[0], units.u_rlv.shape[0], units.u_llv.shape[1]
+    P, T = n_points, L * R
+
+    def cross(x, lasers: bool):
+        # Lasers x rings -> trial = p * T + l * R + r, dense: with one laser
+        # or one ring sample ``reshape`` alone would keep a stride-0 view,
+        # and the kernels take contiguous rows.
+        x = x.reshape(-1, x.shape[-2], N).expand(P, x.shape[-2], N)
+        x = x[:, :, None, :] if lasers else x[:, None, :, :]
+        return x.expand(P, L, R, N).reshape(P * T, N).contiguous()
+
+    sys = SystemBatch(laser=cross(laser, True), ring=cross(ring, False),
+                      fsr=cross(fsr, False), tr_unit=cross(tr_unit, False))
+    # Transform hooks see scalars as they are, per-point values as per-trial
+    # (P * T, 1) columns, so a hook written for one point serves a grid.
+    transforms = {name: per_trial(value, P, P * T, dev)[:, None] if is_per_point(value)
+                  else value for name, value in over.items() if name in transform_axes()}
+    return apply_axis_transforms(sys, transforms, cfg)

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.table_build import build_tables
-from .reach import as_f32
+from .reach import trial_value
 from .sampling import SystemBatch
 
 
@@ -50,12 +50,13 @@ def build_search_tables(
 ) -> SearchTables:
     """Construct per-ring search tables for a batch of trials.
 
+    tr_mean: the mean tuning range, a scalar or one per trial ((T,)).
     visible: optional bool tensor of lines present on the bus — (T, N_wl)
       (same for every ring) or (T, N_ring, N_wl) (per searching ring).
       None = all lines visible.
     """
     n = sys.n_ch
-    tr = as_f32(tr_mean, sys.tr_unit.device) * sys.tr_unit
+    tr = trial_value(tr_mean, sys.tr_unit.device, 2) * sys.tr_unit
     delta, wl, n_valid = build_tables(
         sys.laser, sys.ring, sys.fsr, tr, visible=visible, max_alias=max_alias,
         max_entries=max_entries_for(n) if max_entries is None else max_entries,

@@ -1,0 +1,466 @@
+"""Declarative sweep engine: whole variation grids, with grid points
+flattened into the kernels' trial axis.
+
+The paper's results are shmoo grids: every point is one policy or scheme
+evaluation at a different combination of variation-axis values::
+
+    from repro_torch.core.sweep import SweepRequest, sweep
+    from repro_torch.core.api import make_units
+    from repro_torch.configs.wdm import WDM8_G200
+
+    cfg = WDM8_G200
+    units = make_units(cfg, seed=4, n_laser=100, n_ring=100)   # on CUDA
+
+    # Fig. 4: AFP over a sigma_rLV x TR shmoo.
+    res = sweep(SweepRequest(cfg=cfg, units=units, policy="ltc",
+                             axes={"sigma_rlv": rlvs, "tr_mean": trs}))
+    res.data                 # (len(rlvs), len(trs)) AFP grid
+    res.axis("tr_mean")      # the coordinate values, carried with the result
+
+    # Fig. 5/7/8: minimum tuning range along any registered axis.
+    res = sweep(SweepRequest(cfg=cfg, units=units, policy="lta",
+                             metric="min_tr", axes={"fsr_mean": fsrs}))
+
+Valid axis and fixed names are the ``Variations`` axis registry's; an axis
+registered with ``register_axis`` is sweepable at once.
+
+Engine mechanics:
+
+  * named axes are crossed into a flat (P, K) point list on the host;
+  * ``chunked_map`` runs the points in chunks; a chunk of Pc points is ONE
+    evaluation of Pc * T trials, each point's values given per point (1-D
+    tensors, see ``sampling.instantiate``), so every kernel launch does the
+    work of a whole chunk.  Per-trial results are exact per trial (every
+    path is batch-independent), and each chunk is reduced over its (Pc, T)
+    view: AFP, CAFP and the error shares as failure counts divided by T in
+    float32, ``min_tr`` as a max over each point's trials;
+  * the chunk size is bounded by a device-memory budget (``_CHUNK_BUDGET``
+    over ``scheme_point_bytes`` / ``policy_point_bytes``), or ``chunk_size``;
+  * results come back as grid-shaped tensors on the units' device (leading
+    dims = axis lengths, in the order of the ``axes`` mapping).
+
+The device of the unit samples selects the path, as everywhere in the port:
+CUDA units go through the hand-written kernels, CPU units through their
+plain versions.  ``mesh=`` (multi-device sweeps) and ``fabric=`` (fabric
+sweeps) are not ported yet and raise ``NotImplementedError``; the
+reference's phase telemetry (its recorder's chunk-plan notes and measured
+calls) arrives with the observability slice.
+
+``sweep_reference`` is the per-point loop over the single-point entry
+points: the engine's oracle, consuming the same validated ``SweepRequest``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from .api import (
+    EvalResult,
+    evaluate_policy,
+    evaluate_scheme,
+    policy_min_tr,
+    policy_trial_min_tr,
+    policy_trials,
+    scheme_trials,
+)
+from .grid import ArbitrationConfig
+from .sampling import UnitSamples
+from .search_table import max_entries_for
+from .temporal import TemporalStats, Timeline, run_timeline_impl
+from .variations import Variations, _maybe_validate, axis_names, axis_spec
+
+#: Per-chunk device-memory budget for automatic chunk sizing [bytes]: 4 GiB,
+#: 5 % of an 80 GB card.
+_CHUNK_BUDGET = 4 * 1024 ** 3
+
+
+def _tree_map(fn: Callable, *trees):
+    """``fn`` over the tensors of equal-structured (named) tuples."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        out = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
+    return fn(*trees)
+
+
+def chunked_map(fn: Callable, xs, *, chunk: int):
+    """Run ``fn(xs[i:i + chunk])`` over the leading axis of ``xs`` (a tensor
+    or an array) and concatenate the results (a tensor or a named tuple of
+    tensors, each with the chunk's leading axis) along it.  Peak memory is
+    one chunk's; the last chunk is simply smaller."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    outs = [fn(xs[start:start + chunk]) for start in range(0, xs.shape[0], chunk)]
+    return _tree_map(lambda *parts: torch.cat(parts), *outs)
+
+
+def _check_names(names, *, metric: str) -> None:
+    valid = axis_names()
+    for name in names:
+        if name not in valid:
+            raise ValueError(f"unknown sweep axis {name!r}; valid: {valid}")
+    if metric == "min_tr" and "tr_mean" in names:
+        raise ValueError("min_tr sweeps solve for TR; 'tr_mean' cannot be an axis")
+
+
+def _validate_request(names, fixed, *, metric: str, policy, scheme) -> None:
+    """Shared request validation: the engine and the reference loop consume
+    the same validated ``SweepRequest``, so they accept and reject alike."""
+    if (policy is None) == (scheme is None):
+        raise ValueError("exactly one of policy/scheme required")
+    if metric not in ("eval", "min_tr"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if metric == "min_tr" and policy is None:
+        raise ValueError("min_tr sweeps are policy sweeps")
+    _check_names(names, metric=metric)
+    _check_names(fixed, metric=metric)
+    overlap = set(names) & set(fixed)
+    if overlap:
+        raise ValueError(f"axes and fixed overlap: {sorted(overlap)}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SweepRequest:
+    """A complete, validated description of one grid evaluation.
+
+    axes:   ordered mapping axis name -> 1-D coordinate values; the result's
+            leading dims follow this order.
+    policy/scheme: exactly one; the evaluation target.
+    metric: "eval" (AFP for a policy / EvalResult for a scheme) or
+            "min_tr" (policy only; minimum mean TR for complete success).
+    fixed:  scalar overrides applied at every point (a mapping or a
+            ``Variations``), rounded to float32 as the axis values are.
+    chunk_size: grid points per chunk (None = automatic, from the memory
+            budget).
+    tr_fast: policy-eval sweeps with a ``tr_mean`` axis collapse that axis
+            to a threshold comparison against one per-trial min-TR
+            evaluation per remaining point (``_afp_from_trial_min_tr``).
+            Disable to force the direct path.
+    timeline: optional ``core.temporal.Timeline``.  Each grid point then
+            runs the temporal re-arbitration (``run_timeline`` defaults)
+            instead of a one-shot evaluation, and the result grids are
+            trial-mean ``TemporalStats`` fields with a trailing step axis.
+            Requires a ``protocol_*`` scheme and ``metric="eval"``.
+    mesh, fabric: the reference's multi-device and fabric sweeps; not
+            ported yet (``NotImplementedError``).
+
+    Validation happens at construction, so an invalid request never reaches
+    the engine (or the reference loop).
+    """
+
+    cfg: ArbitrationConfig
+    units: UnitSamples
+    axes: Mapping[str, np.ndarray]
+    policy: str | None = None
+    scheme: str | None = None
+    metric: str = "eval"
+    fixed: Mapping[str, float] | Variations | None = None
+    chunk_size: int | None = None
+    tr_fast: bool = True
+    mesh: Any = None
+    timeline: Any = None
+    fabric: Any = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sweep(mesh=...): multi-device sweeps are not ported yet; they "
+                "arrive after single-device parity (ROADMAP queue 1)")
+        if self.fabric is not None:
+            raise NotImplementedError(
+                "sweep(fabric=...): fabric sweeps arrive with the fabric slice "
+                "of the port (ROADMAP queue 1, items 3-4)")
+        axes = {
+            str(k): np.asarray(v, np.float32).reshape(-1)
+            for k, v in dict(self.axes).items()
+        }
+        fixed = self.fixed
+        if isinstance(fixed, Variations):
+            fixed = dict(fixed.items())
+        fixed = {str(k): v for k, v in dict(fixed or {}).items()}
+        object.__setattr__(self, "axes", axes)
+        object.__setattr__(self, "fixed", fixed)
+        _validate_request(
+            tuple(axes), tuple(fixed),
+            metric=self.metric, policy=self.policy, scheme=self.scheme,
+        )
+        if not axes:
+            raise ValueError("at least one sweep axis required")
+        for name, values in axes.items():
+            spec = axis_spec(name)
+            for v in values:
+                _maybe_validate(spec, v)
+        for name, v in fixed.items():
+            _maybe_validate(axis_spec(name), v)
+        if self.chunk_size is not None and self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
+        if self.timeline is not None:
+            if not isinstance(self.timeline, Timeline):
+                raise ValueError(
+                    "timeline sweeps take a core.temporal.Timeline, got "
+                    f"{type(self.timeline).__name__}")
+            if self.scheme is None or not self.scheme.startswith("protocol_"):
+                raise ValueError(
+                    "timeline sweeps run incremental re-arbitration and "
+                    f"need a protocol_* scheme; got scheme={self.scheme!r}"
+                )
+            if self.metric != "eval":
+                raise ValueError("timeline sweeps require metric='eval'")
+            n_ch = int(self.timeline.n_ch)
+            if n_ch != len(self.cfg.s):
+                raise ValueError(
+                    f"timeline has {n_ch} channels but cfg has {len(self.cfg.s)}"
+                )
+
+    def replace(self, **kw) -> "SweepRequest":
+        return dataclasses.replace(self, **kw)
+
+
+class SweepResult(NamedTuple):
+    """Grid(s) plus the axis metadata they were evaluated over.
+
+    ``data`` is the grid tensor (policy and min_tr requests), an
+    ``EvalResult`` whose fields are grids (scheme requests; ``alg_success``
+    and ``ideal_ok`` carry a trailing trial axis) or a ``TemporalStats`` of
+    grids with a trailing step axis (timeline requests); leading dims follow
+    ``axis_names``, with ``coords[i]`` holding axis i's coordinate values.
+    """
+
+    data: Any
+    axis_names: tuple
+    coords: tuple
+
+    def axis(self, name: str) -> np.ndarray:
+        """Coordinate values of the named axis."""
+        try:
+            return self.coords[self.axis_names.index(name)]
+        except ValueError:
+            raise ValueError(
+                f"result has no axis {name!r}; axes: {self.axis_names}"
+            ) from None
+
+
+def _grid_points(axes: Mapping[str, np.ndarray]):
+    """Cross the named axes into a flat (P, K) float32 point array."""
+    names = tuple(axes)
+    values = [np.asarray(v, np.float32).reshape(-1) for v in axes.values()]
+    shape = tuple(len(v) for v in values)
+    mesh = np.meshgrid(*values, indexing="ij")
+    points = np.stack([m.reshape(-1) for m in mesh], axis=-1)  # (P, K)
+    return names, points, shape
+
+
+def scheme_point_bytes(cfg: ArbitrationConfig, n_trials: int) -> int:
+    """Per-grid-point working-set estimate [bytes] of a *scheme* sweep, the
+    quantity ``_auto_chunk`` budgets against.
+
+    The (T, N, E) search tables (float32 delta + int32 wl) and n_valid,
+    counted three times: once for the tables, twice for the arbiters'
+    transients (masked copies of the tables' rows, the protocol engine's
+    states); plus the (T, N, N) float32 residual of the LtA ideal and the
+    four (T, N) float32 system fields.  ``chip_smoke.py`` prints the card's
+    peak beside it.
+    """
+    n = cfg.grid.n_ch
+    e = max_entries_for(n)
+    tables = n_trials * n * (e * 8 + 4)
+    return 3 * tables + n_trials * n * n * 4 + 4 * n_trials * n * 4
+
+
+def policy_point_bytes(cfg: ArbitrationConfig, n_trials: int) -> int:
+    """Per-grid-point working-set estimate [bytes] of a *policy* sweep: the
+    (T, N, N) float32 residual tensor of the LtA path (bottleneck weights,
+    reach matrix), three live copies, plus the four (T, N) system fields.
+    The LtD/LtC kernel reads only the (T, N) fields, so this bounds it."""
+    n = cfg.grid.n_ch
+    return n_trials * n * n * 4 * 3 + 4 * n_trials * n * 4
+
+
+def _auto_chunk(cfg: ArbitrationConfig, units: UnitSamples, n_points: int,
+                scheme: str | None) -> int:
+    """Largest chunk whose per-point working set fits the memory budget."""
+    trials = units.u_rlv.shape[0] * units.u_go.shape[0]
+    per_point = (scheme_point_bytes(cfg, trials) if scheme is not None
+                 else policy_point_bytes(cfg, trials))
+    return int(np.clip(_CHUNK_BUDGET // max(per_point, 1), 1, n_points))
+
+
+def _trial_mean(x: torch.Tensor, n_trials: int) -> torch.Tensor:
+    """(..., T) bool or integer -> (...,) float32 trial mean: the integer sum
+    over T divided by T in float32 (a true division on every device; a CUDA
+    division by a host scalar would multiply by its reciprocal)."""
+    t = torch.tensor(float(n_trials), dtype=torch.float32, device=x.device)
+    return x.sum(dim=-1).to(torch.float32) / t
+
+
+def _eval_chunk(cfg, units, fixed, timeline, points, *, names, metric, policy,
+                scheme):
+    """One chunk of Pc grid points as one batch of Pc * T trials -> per-point
+    results with a leading (Pc,) axis."""
+    over = dict(fixed)
+    over.update({name: torch.from_numpy(np.ascontiguousarray(points[:, i]))
+                 for i, name in enumerate(names)})
+    var = Variations(**over)
+    n_points = points.shape[0]
+    if timeline is not None:
+        _, stats = run_timeline_impl(cfg, units, timeline, var, scheme=scheme)
+        # trial mean per point and step: (S, Pc * T) -> (Pc, S)
+        return TemporalStats(*(
+            _trial_mean(a.reshape(a.shape[0], n_points, -1), a.shape[1] // n_points).T
+            for a in stats))
+    if metric in ("min_tr", "trial_min_tr"):
+        per_trial = policy_trial_min_tr(cfg, units, policy, var).reshape(n_points, -1)
+        return per_trial if metric == "trial_min_tr" else per_trial.amax(dim=-1)
+    if policy is not None:
+        ok = policy_trials(cfg, units, policy, var).reshape(n_points, -1)
+        return _trial_mean(~ok, ok.shape[1])
+    r = scheme_trials(cfg, units, scheme, var)
+    alg, ok, lock, order = (x.reshape(n_points, -1) for x in r)
+    t = ok.shape[1]
+    return EvalResult(
+        afp=_trial_mean(~ok, t),
+        cafp=_trial_mean(~alg & ok, t),
+        lock_err=_trial_mean(lock, t),
+        order_err=_trial_mean(order, t),
+        alg_success=alg,
+        ideal_ok=ok,
+    )
+
+
+def _afp_from_trial_min_tr(trial_min_tr: torch.Tensor, tr_values) -> torch.Tensor:
+    """(..., T) per-trial min TR x (L,) TR axis -> (..., L) AFP grid.
+
+    Exact against evaluating each TR point: ideal success at t is
+    ``trial_min_tr <= t`` for every policy, and the AFP is the failure
+    count over T, divided in float32 as the direct path divides it.
+    """
+    tr = torch.as_tensor(tr_values, dtype=torch.float32, device=trial_min_tr.device)
+    ok = trial_min_tr[..., None, :] <= tr[:, None]
+    return _trial_mean(~ok, trial_min_tr.shape[-1])
+
+
+def sweep(request: SweepRequest) -> SweepResult:
+    """Evaluate a ``SweepRequest``: the engine's single entry point
+    (``sweep_policy`` / ``sweep_scheme`` / ``sweep_min_tr`` / ``sweep_grid``
+    wrap it).  Returns the grid(s) and the axis metadata."""
+    cfg, units = request.cfg, request.units
+    policy, scheme, metric = request.policy, request.scheme, request.metric
+    names, points, shape = _grid_points(request.axes)
+    coords = tuple(request.axes[n] for n in names)
+
+    tr_idx = None
+    if (policy is not None and metric == "eval" and request.tr_fast
+            and "tr_mean" in names):
+        # TR fast path: one per-trial min-TR evaluation per non-TR point,
+        # then the whole TR axis is a broadcast threshold comparison.
+        metric = "trial_min_tr"
+        tr_idx = names.index("tr_mean")
+        names = tuple(n for n in names if n != "tr_mean")
+        shape = shape[:tr_idx] + shape[tr_idx + 1:]
+        if names:
+            points = _grid_points({n: request.axes[n] for n in names})[1]
+        else:
+            points = np.zeros((1, 0), np.float32)  # a single all-defaults point
+
+    chunk = request.chunk_size or _auto_chunk(cfg, units, points.shape[0], scheme)
+    fixed = {k: np.float32(v) for k, v in request.fixed.items()}
+    out = chunked_map(
+        lambda pts: _eval_chunk(cfg, units, fixed, request.timeline, pts, names=names,
+                                metric=metric, policy=policy, scheme=scheme),
+        points, chunk=chunk)
+    if tr_idx is not None:
+        afp = _afp_from_trial_min_tr(out.reshape(shape + out.shape[1:]),
+                                     request.axes["tr_mean"])
+        data = torch.movedim(afp, -1, tr_idx)
+    else:
+        data = _tree_map(lambda a: a.reshape(shape + a.shape[1:]), out)
+    return SweepResult(data=data, axis_names=tuple(request.axes), coords=coords)
+
+
+def sweep_grid(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    axes: Mapping[str, np.ndarray],
+    *,
+    policy: str | None = None,
+    scheme: str | None = None,
+    metric: str = "eval",
+    fixed: Mapping[str, float] | None = None,
+    chunk_size: int | None = None,
+    tr_fast: bool = True,
+    mesh=None,
+):
+    """Bare-grid wrapper over ``sweep``: builds the ``SweepRequest`` and
+    returns ``SweepResult.data`` only."""
+    return sweep(SweepRequest(
+        cfg=cfg, units=units, axes=axes, policy=policy, scheme=scheme,
+        metric=metric, fixed=fixed, chunk_size=chunk_size, tr_fast=tr_fast,
+        mesh=mesh,
+    )).data
+
+
+def sweep_policy(cfg, units, policy, axes, **kw):
+    """Grid of AFP values for an ideal policy.  See ``SweepRequest``."""
+    return sweep_grid(cfg, units, axes, policy=policy, **kw)
+
+
+def sweep_scheme(cfg, units, scheme, axes, **kw) -> EvalResult:
+    """EvalResult whose fields are grids, for an oblivious scheme."""
+    return sweep_grid(cfg, units, axes, scheme=scheme, **kw)
+
+
+def sweep_min_tr(cfg, units, policy, axes, **kw):
+    """Grid of minimum mean tuning ranges for an ideal policy."""
+    return sweep_grid(cfg, units, axes, policy=policy, metric="min_tr", **kw)
+
+
+def sweep_reference(request: SweepRequest) -> SweepResult:
+    """Per-point loop over the single-point entry points: the engine's
+    oracle and a readable spec of what it computes.  Consumes the same
+    validated ``SweepRequest``.  Its AFP and CAFP are the entry points'
+    ``1 - mean`` and ``mean``, which equal the engine's counts over T as
+    counts.  Never use on a hot path."""
+    cfg, units = request.cfg, request.units
+    policy, scheme = request.policy, request.scheme
+    if request.timeline is not None:
+        raise NotImplementedError(
+            "sweep_reference has no temporal path; run_timeline is itself "
+            "the per-point primitive a timeline sweep maps; compare against "
+            "direct run_timeline calls instead"
+        )
+    names, points, shape = _grid_points(request.axes)
+    outs = []
+    for vals in points:
+        over = {k: np.float32(v) for k, v in request.fixed.items()}
+        over.update({name: np.float32(v) for name, v in zip(names, vals)})
+        var = Variations(**over)
+        if request.metric == "min_tr":
+            outs.append(policy_min_tr(cfg, units, policy, var))
+        elif policy is not None:
+            outs.append(evaluate_policy(cfg, units, policy, variations=var))
+        else:
+            outs.append(evaluate_scheme(cfg, units, scheme, variations=var))
+    stacked = _tree_map(lambda *xs: torch.stack(xs), *outs)
+    data = _tree_map(lambda a: a.reshape(shape + a.shape[1:]), stacked)
+    return SweepResult(data=data, axis_names=names,
+                       coords=tuple(request.axes[n] for n in names))
+
+
+def sweep_grid_reference(
+    cfg: ArbitrationConfig,
+    units: UnitSamples,
+    axes: Mapping[str, np.ndarray],
+    *,
+    policy: str | None = None,
+    scheme: str | None = None,
+    metric: str = "eval",
+    fixed: Mapping[str, float] | None = None,
+):
+    """Bare-grid wrapper over ``sweep_reference`` (see there)."""
+    return sweep_reference(SweepRequest(
+        cfg=cfg, units=units, axes=axes, policy=policy, scheme=scheme,
+        metric=metric, fixed=fixed,
+    )).data

@@ -15,9 +15,10 @@ live ``ProtocolState`` is carried from step to step.  Each step:
    incremental, transactional) or from scratch (cold, the baseline).
 
 The reference's ``lax.scan`` over steps is a host loop that stacks each
-step's stats.  Checkpointed campaigns (``save_campaign`` and
-``restore_campaign``) arrive with the port of ``checkpoint/store.py``, and
-timeline sweeps with the sweep engine.
+step's stats.  Timeline sweeps (``SweepRequest(timeline=...)``) pass
+per-point variations: the batch then holds every point's trials, each point
+under its own values.  Checkpointed campaigns (``save_campaign`` and
+``restore_campaign``) arrive with the port of ``checkpoint/store.py``.
 """
 from __future__ import annotations
 
@@ -28,11 +29,11 @@ import torch
 
 from .matching import adjacency_bitmask, max_matching
 from .protocol import ProtocolState, cold_state, revalidate_state, run_protocol
-from .reach import as_f32, reach_matrix
+from .reach import reach_matrix, trial_value
 from .relation import chain_spec
-from .sampling import UnitSamples, instantiate, resolve_device
+from .sampling import UnitSamples, instantiate, per_trial, resolve_device
 from .search_table import build_search_tables
-from .variations import Variations, apply_axis_transforms, as_variations
+from .variations import Variations, apply_axis_transforms, as_variations, point_count
 
 
 class Timeline(NamedTuple):
@@ -227,8 +228,10 @@ def run_timeline_impl(
     carried state still gives broken/churn step over step).  Both run the
     engine with the same ``transactional``/``patience`` settings.  Returns
     ``(final_state, TemporalStats)``; the state resumes a later call through
-    ``init_state`` with ``slice_timeline``.  ``trace`` (the flight recorder)
-    is not ported yet and raises.
+    ``init_state`` with ``slice_timeline``.  Per-point variations (1-D
+    tensors, see ``sampling.instantiate``) run every point's trials in one
+    batch, point-major.  ``trace`` (the flight recorder) is not ported yet
+    and raises.
     """
     from .api import scheme_spec  # local: api imports this module's deps
 
@@ -237,11 +240,11 @@ def run_timeline_impl(
             "run_timeline(trace=...): the flight recorder is not ported yet; "
             "it arrives with the observability slice of the port")
     over = as_variations(variations)
-    tr = over.resolve("tr_mean", cfg)
     sys = instantiate(cfg, units, over)
     spec = chain_spec(cfg.s)
     t, n = sys.laser.shape
     dev = sys.laser.device
+    tr = per_trial(over.resolve("tr_mean", cfg), point_count(over), t, dev)
     kw = _protocol_kwargs(scheme)
     if kw is None and warm:
         raise ValueError(
@@ -262,7 +265,7 @@ def run_timeline_impl(
                                      max_alias=cfg.max_fsr_alias)
         prev_lock = state.lock
         reval, kept = revalidate_state(
-            tables, state, tr=as_f32(tr, dev) * sys_s.tr_unit, hysteresis=hysteresis)
+            tables, state, tr=trial_value(tr, dev, 2) * sys_s.tr_unit, hysteresis=hysteresis)
         broken = ((prev_lock >= 0) & (reval.lock < 0)).sum(dim=1, dtype=torch.int32)
         if kw is None:
             asg = arbiter(cfg, tables, spec)

@@ -8,7 +8,9 @@ axis registry that makes variation sources first-class.
 
 ``Variations(**overrides)``
     A frozen name -> value mapping.  ``None`` means "use the config
-    default" and is dropped at construction.
+    default" and is dropped at construction.  A value is a scalar, or a 1-D
+    (P,) tensor holding one value per grid point (the sweep engine's
+    flattened points; see ``sampling.instantiate``).
 
 Resolution order for an axis value: the override in the ``Variations``
 instance, else the registry default evaluated against the
@@ -77,13 +79,37 @@ def axis_spec(name: str) -> AxisSpec:
 
 
 def _maybe_validate(spec: AxisSpec, value) -> None:
+    """Run the axis check on a scalar value, and on each value of a per-point
+    (P,) tensor; other arrays (per-channel offsets) are not checked."""
     if spec.validate is None:
+        return
+    if is_per_point(value):
+        for v in value.tolist():
+            spec.validate(float(v))
         return
     try:
         concrete = float(value)
     except (TypeError, ValueError, RuntimeError):
         return  # non-scalar value (e.g. a per-channel offset); nothing to check
     spec.validate(concrete)
+
+
+def is_per_point(value) -> bool:
+    """A 1-D tensor override holds one value per grid point."""
+    return isinstance(value, torch.Tensor) and value.dim() == 1
+
+
+def point_count(variations) -> int:
+    """P, the length shared by the per-point overrides; 1 if there are none."""
+    lengths = {name: v.shape[0] for name, v in variations.items() if is_per_point(v)}
+    if len(set(lengths.values())) > 1:
+        raise ValueError(f"per-point overrides differ in length: {lengths}")
+    return next(iter(lengths.values()), 1)
+
+
+def transform_axes() -> tuple[str, ...]:
+    """The registered axes that carry a ``transform`` hook."""
+    return tuple(name for name, spec in _AXIS_REGISTRY.items() if spec.transform is not None)
 
 
 class Variations:
@@ -166,9 +192,12 @@ def as_variations(value) -> Variations:
     )
 
 
-def apply_axis_transforms(sys, variations: Variations, cfg):
+def apply_axis_transforms(sys, variations, cfg):
     """Run the ``transform`` hook of every overridden axis that has one, in
-    axis registration order; axes without an override are skipped."""
+    axis registration order; axes without an override are skipped.
+    ``variations`` is a ``Variations`` or a plain name -> value mapping; a
+    value broadcasts against the (T, N) rows, so it may be a scalar, a
+    per-channel (N,) offset or a per-trial (T, 1) column."""
     for name, spec in _AXIS_REGISTRY.items():
         if spec.transform is not None and name in variations:
             sys = spec.transform(sys, variations.get(name), cfg)
@@ -202,7 +231,8 @@ def _llv_frac_check(v: float) -> None:
 
 def _offset(value, like: torch.Tensor):
     """A scalar stays a Python number (rounded to float32 by the op, as in
-    the reference); an array-valued offset becomes a tensor beside ``like``."""
+    the reference); an array-valued offset (per channel (N,), or per trial
+    (T, 1) in a batch of grid points) becomes a tensor beside ``like``."""
     if isinstance(value, (int, float)):
         return value
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)

@@ -136,14 +136,29 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+#: The most trials a launch takes: every launch function takes T as an
+#: ``int`` and rounds it up to whole blocks in ``int`` arithmetic (offsets
+#: into the (T, N) and (T, N, E) arrays are ``long long`` in the kernels).
+MAX_TRIALS = 2 ** 31 - 2 ** 16
+
+
+def check_trials(name: str, t: int) -> None:
+    """Raise if T trials would not fit a launch's ``int`` trial count."""
+    if t > MAX_TRIALS:
+        raise ValueError(f"{name}: {t} trials in one launch; at most {MAX_TRIALS} "
+                         "(split the batch)")
+
+
 def check_inputs(name: str, args, max_n: int, dtype=torch.float32,
                  square: bool = False) -> tuple[int, int]:
     """Validate a wrapper's (T, N) inputs, or (T, N, N) ones if ``square``:
-    one CUDA device, one dtype, one shape, contiguous, 1 <= N <= max_n.
-    Returns (T, N)."""
+    one CUDA device, one dtype, one shape, contiguous, 1 <= N <= max_n,
+    T <= ``MAX_TRIALS``.  Returns (T, N)."""
     shape, dev = args[0].shape, args[0].device
     if len(shape) >= 2 and not 1 <= shape[1] <= max_n:
         raise ValueError(f"{name}: N must be in [1, {max_n}], got {shape[1]}")
+    if len(shape) >= 1:
+        check_trials(name, shape[0])
     for a in args:
         if a.device.type != "cuda" or a.device != dev:
             raise ValueError(f"{name}: all inputs must lie on one CUDA device")

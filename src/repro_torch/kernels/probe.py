@@ -40,6 +40,7 @@ def _check(wl, taken, floor) -> tuple[int, int, int, int]:
                          f"{tuple(taken.shape)}, floor {tuple(floor.shape)}")
     if c < 1 or e < 1 or taken.shape[1] < 1:
         raise ValueError("probe: C, E and L must be >= 1")
+    _build.check_trials("probe", t)
     dev = wl.device
     if dev.type != "cuda" or taken.device != dev or floor.device != dev:
         raise ValueError("probe: all inputs must lie on one CUDA device")
