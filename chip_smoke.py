@@ -36,7 +36,12 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             sweep engine's flattened sizes (fig4's 8 x 12 grid at WDM8 as one
             batch of 960,000 trials, 30 points of the WDM32 TR axis as
             300,000 trials with 7.4 GB of tables), held on the first and the
-            last 10,007 trials;
+            last 10,007 trials; and at the fabric paths' shapes
+            (``phase_fabric_kernels``): ``table_build`` at fig21's 2,016
+            WDM16 trials with the (T, N, N) mask of a chaos step whose dead
+            links (and a dead comb) give all-False masks, ``probe`` on those
+            empty tables, ``match`` with the all-zero rows of dead rings and
+            links, and ``feasibility`` at the same trials;
 3. main     drive each ported path with the launch counts set to 0 just
             before and read just after (each kernel's ``launches`` in the
             kernels line is its sum over the paths), at 100 x 100 = 10,000
@@ -56,12 +61,20 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             fig4, fig14, fig5 and fig19 grids, a WDM32 TR axis and a timeline
             sweep, each a chunk of grid points run as one batch of trials,
             held against the same grid one point a chunk, against the port's
-            per-point ``sweep_reference`` on a sub-grid, and timed).
-            Per-trial results on a 20 x 20 subset are held against the CPU
-            plain path, and every call is timed.  Then ``BENCH_sweep.json``'s
+            per-point ``sweep_reference`` on a sub-grid, and timed); the
+            fabric path (``phase_fabric``: ``bringup`` of the 1,008-link and
+            10,080-link fabrics, fig21's grid for seq_retry, vtrs_ssm and
+            protocol_lta against the same grid one point a chunk, fig21's
+            constraints-off parity on all 1,008 links); and the chaos path
+            (``phase_chaos``: fig22's four scenarios warm and cold,
+            ``tiny-flap`` and a 1,008-link flap timeline, the no-fault
+            parity).  Per-trial results on a 20 x 20 subset (per-link
+            results on a subset of links) are held against the CPU plain
+            path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
             card from units drawn as the benchmarks drew them
-            (``phase_records``), exactly as counts of 576 trials;
+            (``phase_records``), exactly as counts of 576 trials, and its
+            fig21 and fig22 records after their rounding;
 4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32
             (``match`` also at WDM16, TR 4.48, the temporal path's input),
             beside its bound: the kernel's device time per launch from a
@@ -120,6 +133,16 @@ FIG17_SCHEMES = ("seq_retry_r1", "seq_retry_r2", "seq_retry_r4", "seq_retry",
                  "seq_retry_phys")
 FIG19_SCHEMES = ("seq_retry", "protocol_lta_h1", "protocol_lta_h2", "protocol_lta_h4",
                  "protocol_lta")
+FIG21_TRS_X = (0.40, 0.46)           # fig21's TR axis, in FSRs
+FIG21_SCHEMES = ("seq_retry", "vtrs_ssm", "protocol_lta")
+FIG22_SCENARIOS = ("mid-linkflap", "mid-combout", "mid-podheat", "mid-ringdeath")
+#: fig22's schemes per scenario (``benchmarks/fig22_fabric_chaos.py``, default mode).
+FIG22_SCHEMES = {"mid-linkflap": FIG21_SCHEMES}
+FABRIC_SEED = 33                     # the fabric benchmarks' seed
+#: Links of a fabric held against the CPU plain path: the first bundle's
+#: first links, links 100 and 101 (100 is the one fig22's 1,008-link
+#: timeline flaps) and the last 12 (the last bundle's, on FABRIC_1K).
+FABRIC_SUBSET = tuple(range(0, 12)) + (100, 101) + tuple(range(-12, 0))
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1431,6 +1454,474 @@ def phase_records(device: str = "cuda") -> None:
         print(f"[records] {fig}: {n} BENCH_sweep.json records held, exact as counts of "
               f"{t} trials{extra}")
     print(f"[records] {time.perf_counter() - wall0:.1f} s")
+    wall0 = time.perf_counter()
+    for fig, n in records_fabric(device).items():
+        how = ({"fig21": "its grids after the records' rounding to 4 decimals",
+                "fig22": "per-step link means at 2 decimals, fabric steps at 4, its gates and "
+                         "the no-fault parity"}[fig])
+        print(f"[records] {fig}: {n} BENCH_sweep.json records held ({how})")
+    print(f"[records] fabric records {time.perf_counter() - wall0:.1f} s")
+
+
+def fig21_axes(cfg):
+    import numpy as np
+
+    return {"comb_coupling": np.array([0.0, 1.0], np.float32),
+            "tr_mean": np.array(FIG21_TRS_X, np.float32) * cfg.grid.fsr}
+
+
+def fig22_1k_timeline(cfg, spec, device=None):
+    """``fig22_fabric_chaos.py``'s ``--full`` timeline: 3 steps across the
+    1,008-link fabric, a 0.2-spacing thermal ramp, link 100 flapped down
+    for one step at step 1."""
+    from repro_torch.fabric import make_fabric_timeline
+
+    return make_fabric_timeline(spec, 3, cfg.grid.n_ch, thermal=0.2 * cfg.grid.grid_spacing,
+                                events=((1, "link_flap", 100, 1),), device=device)
+
+
+def _unit_subset(units, idx):
+    """The units of links ``idx`` alone, on the CPU."""
+    from repro_torch.fabric import FabricUnits
+
+    return FabricUnits(*(u[list(idx)].cpu().contiguous() for u in units))
+
+
+def _subset_spec(spec, n_links):
+    """A route-less spec of the same comb group over ``n_links`` links: the
+    per-link paths read only the comb group (the units carry the group draws
+    gathered per link)."""
+    from repro_torch.fabric import FabricSpec
+
+    return FabricSpec(pods=2, links_per_pair=n_links, comb_group=spec.comb_group)
+
+
+def phase_fabric_kernels(seed: int) -> dict:
+    """Phase 2 at the fabric paths' shapes: ``table_build`` at fig21's 2,016
+    WDM16 trials with a per-link (T, N, N) mask of a chaos step, dead links
+    all-False rows; ``match`` with the all-zero rows of dead rings and
+    links; ``probe`` on the empty tables of dead links; ``feasibility`` at
+    the same 2,016 trials.  All exactly against the plain versions."""
+    import torch
+
+    from repro_torch.configs.fabric import FABRIC_CONFIGS
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.matching import adjacency_bitmask
+    from repro_torch.core.reach import as_f32, reach_matrix
+    from repro_torch.fabric import instantiate_links, make_fabric_timeline, make_fabric_units
+    from repro_torch.fabric.chaos import _drifted, _visibility
+    from repro_torch.kernels.bitmask_match import perfect_matching, perfect_matching_plain
+    from repro_torch.kernels.feasibility import feasibility, feasibility_plain
+    from repro_torch.kernels.probe import masked_research, masked_research_plain
+    from repro_torch.kernels.table_build import build_tables, build_tables_plain
+
+    errs = {"table_build": [], "match": [], "probe": [], "feasibility": []}
+    cfg_key, spec = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg = WDM_CONFIGS[cfg_key]
+    n, k = cfg.grid.n_ch, spec.n_links
+    gen = torch.Generator().manual_seed(seed)
+    dead_links = torch.randperm(k, generator=gen)[:50].tolist()
+    events = [(1, "link_kill", l) for l in dead_links]
+    events += [(1, "ring_kill", int(l), int(e), int(c)) for l, e, c in zip(
+        torch.randint(0, k, (200,), generator=gen), torch.randint(0, 2, (200,), generator=gen),
+        torch.randint(0, n, (200,), generator=gen))]
+    events += [(1, "lane_kill", int(l), int(c)) for l, c in zip(
+        torch.randint(0, k, (200,), generator=gen), torch.randint(0, n, (200,), generator=gen))]
+    events += [(1, "comb_kill", 3)]
+    tl = make_fabric_timeline(spec, 2, n, thermal=0.2 * cfg.grid.grid_spacing, events=events)
+    step = type(tl)(*(a[1] for a in tl))
+    units = make_fabric_units(cfg, spec, seed)
+    sys_ = _drifted(cfg, instantiate_links(cfg, spec, units), step)
+    vis = _visibility(step, n)
+    dead_rows = int((~vis.any(dim=2).any(dim=1)).sum())
+    for tr_x in FIG21_TRS_X:
+        tr_mean = tr_x * cfg.grid.fsr
+        tr = as_f32(tr_mean, sys_.tr_unit.device) * sys_.tr_unit
+        args = (sys_.laser, sys_.ring, sys_.fsr, tr)
+        kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
+        got = build_tables(*args, visible=vis, **kw)
+        want = build_tables_plain(*(a.cpu() for a in args), visible=vis.cpu(), **kw)
+        for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
+            compare(f"table_build fabric1k TR={tr_x} FSR {tag}", g, w, errs["table_build"])
+        empty = int((got[2].reshape(-1, 2 * n) == 0).all(dim=1).sum())
+        if empty < len(dead_links):
+            fail(f"table_build fabric1k: {empty} links with empty tables, "
+                 f"{len(dead_links)} links dead")
+        print(f"[kernels] table_build fabric1k TR={tr_x} FSR: T={args[0].shape[0]} with a "
+              f"(T, N, N) mask, all False on {dead_rows} trials ({len(dead_links)} dead links "
+              f"and a dead comb); exact ({empty} links with empty tables)")
+        # probe on those tables: C = 1 and 4 rows, half the lines taken
+        wl_all = got[1]
+        taken = (torch.rand(wl_all.shape[0], n, generator=gen) < 0.5).cuda()
+        for c in (1, 4):
+            wl = wl_all[:, :c].contiguous()
+            floor = torch.randint(0, 3 * n + 1, (wl.shape[0], c), generator=gen,
+                                  dtype=torch.int32).cuda()
+            g = masked_research(wl, taken, floor)
+            w = masked_research_plain(wl, taken, floor)
+            compare(f"probe fabric1k C={c} first", g[0], w[0], errs["probe"])
+            compare(f"probe fabric1k C={c} found", g[1], w[1], errs["probe"])
+            dead = (got[2][:, :c] == 0)
+            if bool(g[1][dead].any()):
+                fail(f"probe fabric1k C={c}: found an entry in an empty table")
+            print(f"[kernels] probe fabric1k TR={tr_x} FSR C={c}: T={wl.shape[0]} exact "
+                  f"({int(dead.sum())} rows of empty tables, none found)")
+        # match on the live bus: dead rings and dead links are all-zero rows
+        lane = step.lane_alive.repeat_interleave(2, dim=0)
+        ring = step.ring_alive.reshape(-1, n)
+        link = step.link_alive.repeat_interleave(2)
+        reach = (reach_matrix(sys_, tr_mean) & lane[:, None, :] & ring[:, :, None]
+                 & link[:, None, None])
+        adj = adjacency_bitmask(reach)
+        g, w = perfect_matching(adj), perfect_matching_plain(adj)
+        compare(f"match fabric1k TR={tr_x} FSR match_wl", g[0], w[0], errs["match"])
+        compare(f"match fabric1k TR={tr_x} FSR ok", g[1], w[1], errs["match"])
+        print(f"[kernels] match fabric1k TR={tr_x} FSR: T={adj.shape[0]} exact "
+              f"({int((adj == 0).sum())} all-zero rows, {int(g[1].sum())} perfect)")
+    got = feasibility(*sys_, cfg.s)
+    want = feasibility_plain(*(x.cpu() for x in sys_), cfg.s)
+    for tag, g, w in zip(("ltd", "ltc"), got, want):
+        compare(f"feasibility fabric1k {tag}", g, w, errs["feasibility"])
+    print(f"[kernels] feasibility fabric1k: T={sys_.laser.shape[0]} bit-exact")
+    return {key: max(v) for key, v in errs.items()}
+
+
+def _hold_links(name, got, want):
+    """Per-link fields (tensors or named tuples of them) equal exactly."""
+    import torch
+
+    for f, g, w in zip(got._fields, got, want):
+        if g is None or f == "fabric":
+            continue
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            fail(f"{name} {f}: differs from the CPU plain path "
+                 f"({g.dtype}{tuple(g.shape)} against {w.dtype}{tuple(w.shape)})")
+
+
+def phase_fabric(seed: int) -> dict:
+    """The fabric path: ``bringup`` on FABRIC_1K (WDM16, 1,008 links) for
+    seq_retry, vtrs_ssm and protocol_lta and on FABRIC_10K (10,080 links,
+    pod-shared combs) for vtrs_ssm and protocol_lta; fig21's grid through
+    ``sweep(SweepRequest(fabric=...))`` for the three schemes; with the
+    launch counts set to 0 just before and read just after.  Then each grid
+    against the same grid at ``chunk_size=1``, fig21's constraints-off
+    parity on all 1,008 links (one flat ``oblivious_arbitrate`` over the
+    core ``instantiate`` of every link), and per-link records of a link
+    subset against the CPU plain path run on those links alone."""
+    import torch
+
+    from repro_torch.configs.fabric import FABRIC_CONFIGS
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.api import oblivious_arbitrate
+    from repro_torch.core.sampling import SystemBatch, UnitSamples, instantiate
+    from repro_torch.core.sweep import SweepRequest, sweep
+    from repro_torch.fabric import bringup, make_fabric_units
+    from repro_torch.fabric.bringup import _eval_links
+    from repro_torch.core.variations import Variations
+
+    cells = []
+    for key, schemes in (("fabric1k-wdm16", FIG21_SCHEMES),
+                         ("fabric10k-wdm16", ("vtrs_ssm", "protocol_lta"))):
+        cfg_key, spec = FABRIC_CONFIGS[key]
+        for scheme in schemes:
+            cells.append((key, WDM_CONFIGS[cfg_key], spec, scheme))
+    cfg1k_key, spec1k = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg1k = WDM_CONFIGS[cfg1k_key]
+    axes = fig21_axes(cfg1k)
+    tr0 = float(axes["tr_mean"][0])
+    units1k = make_fabric_units(cfg1k, spec1k, seed)
+
+    wrappers = reset_launches()
+    out, ms, n_probe = {}, {}, {}
+    for key, cfg, spec, scheme in cells:
+        out[key, scheme], ms[key, scheme], n_probe[key, scheme] = timed_call(
+            lambda: bringup(cfg, spec, tr_mean=tr0, scheme=scheme, seed=seed))
+    for scheme in FIG21_SCHEMES:
+        req = SweepRequest(cfg=cfg1k, units=units1k, scheme=scheme, fabric=spec1k, axes=axes)
+        out["grid", scheme], ms["grid", scheme], n_probe["grid", scheme] = timed_call(
+            lambda: sweep(req).data)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[fabric] launches on the fabric path: {launches}")
+    for k in ("table_build", "feasibility", "match", "probe"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the fabric path")
+
+    for key, cfg, spec, scheme in cells:
+        res = out[key, scheme]
+        k, n = spec.n_links, cfg.grid.n_ch
+        if res.ev.wl.shape != (k, 2, n) or res.ev.wl.device.type != "cuda":
+            fail(f"{key} {scheme}: records {tuple(res.ev.wl.shape)} on {res.ev.wl.device}")
+        for f in res.stats._fields:
+            x = float(getattr(res.stats, f))
+            if not 0.0 <= x <= 1.0:
+                fail(f"{key} {scheme} {f} = {x} outside [0, 1]")
+        t0 = time.perf_counter()
+        idx = tuple(j % k for j in FABRIC_SUBSET)
+        sub = _unit_subset(res.units, idx)
+        ref = _eval_links(cfg, _subset_spec(spec, len(idx)), scheme,
+                          Variations(tr_mean=tr0), sub)
+        got = type(res.ev)(*(a[list(idx)] for a in res.ev))
+        _hold_links(f"{key} {scheme} links {idx[0]}..{idx[-1]}", got, ref)
+        s = res.stats
+        print(f"[fabric] {key} bringup {scheme} TR={tr0!r}: {k} links ({2 * k} trials), "
+              f"{ms[key, scheme]!r} ms/call, {n_probe[key, scheme]} probe launches; "
+              f"link_up={float(s.link_up)!r} cafp={float(s.cafp)!r} afp={float(s.afp)!r} "
+              f"matched={float(s.matched)!r} bandwidth={float(s.bandwidth)!r} "
+              f"route_up={float(s.route_up)!r} route_cont={float(s.route_cont)!r} "
+              f"(LinkEval of links {idx[:3]}..{idx[-3:]} ({len(idx)}) equal to the CPU "
+              f"plain path on those links alone; {time.perf_counter() - t0:.1f} s of checks)")
+
+    for scheme in FIG21_SCHEMES:
+        t0 = time.perf_counter()
+        grid = out["grid", scheme]
+        req = SweepRequest(cfg=cfg1k, units=units1k, scheme=scheme, fabric=spec1k, axes=axes)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        one = sweep(req.replace(chunk_size=1)).data
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - w0) * 1e3
+        _hold_grid(f"fig21 {scheme} grid chunk_size=1 against auto", one, grid, spec1k.n_links)
+        for f in grid._fields:
+            g = getattr(grid, f)
+            if g.shape != (2, 2) or g.device.type != "cuda" or not bool(torch.isfinite(g).all()):
+                fail(f"fig21 {scheme} {f}: {tuple(g.shape)} on {g.device}")
+        # the grid's point (coupling 0, TR 0.40 FSR) is the bring-up above,
+        # which drew the same units
+        for f in grid._fields:
+            if not torch.equal(getattr(grid, f)[0, 0],
+                               getattr(out["fabric1k-wdm16", scheme].stats, f)):
+                fail(f"fig21 {scheme} {f}: grid point (0, 0) differs from bringup")
+        print(f"[fabric] fig21 grid {scheme}: 4 points x {2 * spec1k.n_links} trials, "
+              f"{ms['grid', scheme]!r} ms/grid ({n_probe['grid', scheme]} probe launches), "
+              f"per-point loop (chunk_size=1) {loop_ms!r} ms; link_up "
+              f"{grid.link_up.tolist()} cafp {grid.cafp.tolist()} (equal to the per-point "
+              f"loop and, at (0, 0), to bringup; {time.perf_counter() - t0:.1f} s)")
+
+    # Constraints-off parity on all 1,008 links: bringup equals the core
+    # instantiate of each link (L = 1 laser, R = 2 rings), stacked, and one
+    # flat oblivious_arbitrate over the 2,016 trials.
+    t0 = time.perf_counter()
+    res = out["fabric1k-wdm16", "vtrs_ssm"]
+    u = res.units
+    per = [instantiate(cfg1k, UnitSamples(u.go[j:j + 1, None], u.llv[j:j + 1], u.rlv[j],
+                                          u.fsr[j], u.tr[j])) for j in range(spec1k.n_links)]
+    flat = SystemBatch(*(torch.cat(x) for x in zip(*per)))
+    for f, a, b in zip(flat._fields, flat, res.system):
+        if not torch.equal(bits(a), bits(b)):
+            fail(f"fig21 parity: system {f} differs from the per-link core instantiate")
+    asg = oblivious_arbitrate(cfg1k, flat, tr0, "vtrs_ssm")
+    if not (torch.equal(asg.wl.view(-1, 2, cfg1k.grid.n_ch), res.ev.wl)
+            and torch.equal(asg.entry.view(-1, 2, cfg1k.grid.n_ch), res.ev.entry)):
+        fail("fig21 parity: bringup differs from one flat oblivious_arbitrate")
+    print(f"[fabric] fig21 constraints-off parity: {spec1k.n_links} links of bringup vtrs_ssm "
+          f"bit-identical to one flat oblivious_arbitrate over {2 * spec1k.n_links} trials "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def _chaos_cells():
+    """(scenario, scheme) pairs of fig22's default mode."""
+    return [(name, scheme) for name in FIG22_SCENARIOS
+            for scheme in FIG22_SCHEMES.get(name, ("vtrs_ssm",))]
+
+
+def phase_chaos(seed: int) -> dict:
+    """The chaos path: the four fig22 scenarios with the records' schemes,
+    warm and cold (6 steps, 48 WDM16 links), ``tiny-flap`` warm and cold,
+    and the 1,008-link 3-step timeline of ``fig22_fabric_chaos.py --full``
+    warm with vtrs_ssm, with the launch counts set to 0 just before and read
+    just after.  Then per-step per-link fields against the CPU plain path
+    (all 48 links of mid-linkflap/vtrs_ssm, warm and cold; a link subset of
+    the 1,008 with link 100), and the no-fault parity on the card."""
+    import torch
+
+    from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.fabric import (FabricTimeline, bringup, make_fabric_timeline,
+                                    make_fabric_units, run_fabric_timeline)
+
+    runs = []
+    for name, scheme in _chaos_cells() + [("tiny-flap", "vtrs_ssm")]:
+        cfg, spec, tl = chaos_timeline(name)
+        runs.append((name, scheme, cfg, spec, tl, make_fabric_units(cfg, spec, seed)))
+    cfg_key, spec1k = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg1k = WDM_CONFIGS[cfg_key]
+    tl1k = fig22_1k_timeline(cfg1k, spec1k)
+    units1k = make_fabric_units(cfg1k, spec1k, seed)
+
+    wrappers = reset_launches()
+    out, ms, n_probe = {}, {}, {}
+    for name, scheme, cfg, spec, tl, units in runs:
+        for warm in (True, False):
+            out[name, scheme, warm], ms[name, scheme, warm], n_probe[name, scheme, warm] = \
+                timed_call(lambda: run_fabric_timeline(cfg, units, spec, tl, scheme=scheme,
+                                                       warm=warm))
+    out["1k"], ms["1k"], n_probe["1k"] = timed_call(
+        lambda: run_fabric_timeline(cfg1k, units1k, spec1k, tl1k, scheme="vtrs_ssm"))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[chaos] launches on the chaos path: {launches}")
+    for k in ("table_build", "feasibility", "match", "probe"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the chaos path")
+
+    mean = lambda x: [round(v, 4) for v in x.double().mean(dim=1).tolist()]  # noqa: E731
+    for name, scheme, cfg, spec, tl, units in runs:
+        for warm in (True, False):
+            t0 = time.perf_counter()
+            state, cs = out[name, scheme, warm]
+            s, k, n = tl.n_steps, spec.n_links, cfg.grid.n_ch
+            if cs.wl.shape != (s, k, 2, n) or state.lock.shape != (2 * k, n):
+                fail(f"{name} {scheme}: wl {tuple(cs.wl.shape)}, state {tuple(state.lock.shape)}")
+            if int(cs.locked.max()) > 2 * n or int(cs.probes[0].abs().sum()) != 0:
+                fail(f"{name} {scheme}: locked or step-0 probes out of range")
+            checked = ""
+            if (name, scheme) in (("mid-linkflap", "vtrs_ssm"), ("tiny-flap", "vtrs_ssm")):
+                _, _, tl_cpu = chaos_timeline(name, device="cpu")
+                u_cpu = type(units)(*(x.cpu() for x in units))
+                ref_state, ref = run_fabric_timeline(cfg, u_cpu, spec, tl_cpu, scheme=scheme,
+                                                     warm=warm)
+                _hold_links(f"{name} {scheme} warm={warm}", cs, ref)
+                _hold_links(f"{name} {scheme} warm={warm} final state", state, ref_state)
+                _hold_grid(f"{name} {scheme} warm={warm} FabricStats", cs.fabric, ref.fabric, k)
+                checked = f"; all {k} links per step and the final state equal to the CPU plain path"
+            print(f"[chaos] {name} {scheme} {'warm' if warm else 'cold'}: {k} links x {s} steps, "
+                  f"{ms[name, scheme, warm]!r} ms/timeline, {n_probe[name, scheme, warm]} probe "
+                  f"launches; per-step mean probes {mean(cs.probes)}, locked {mean(cs.locked)}, "
+                  f"broken {mean(cs.broken)}, feasible {mean(cs.feasible)}, bandwidth "
+                  f"{[round(v, 4) for v in cs.fabric.bandwidth.tolist()]}{checked} "
+                  f"({time.perf_counter() - t0:.1f} s of checks)")
+
+    t0 = time.perf_counter()
+    state, cs = out["1k"]
+    idx = [j % spec1k.n_links for j in FABRIC_SUBSET]
+    sub_tl = FabricTimeline(*(a[:, idx].cpu() for a in tl1k))
+    sub_spec = _subset_spec(spec1k, len(idx))
+    ref_state, ref = run_fabric_timeline(cfg1k, _unit_subset(units1k, idx), sub_spec, sub_tl,
+                                         scheme="vtrs_ssm")
+    got = cs._replace(**{f: getattr(cs, f)[:, idx] for f in cs._fields
+                         if f not in ("fabric", "health")})
+    _hold_links("1k chaos timeline link subset", got, ref)
+    rows = [r for j in idx for r in (2 * j, 2 * j + 1)]
+    _hold_links("1k chaos final state link subset",
+                type(state)(*(x[rows] for x in state)), ref_state)
+    if bool((cs.wl[1, 100] >= 0).any()) or int(cs.locked[2, 100]) == 0:
+        fail("1k chaos: link 100 not dark at step 1 or not re-locked at step 2")
+    print(f"[chaos] fabric1k flap timeline vtrs_ssm warm: {spec1k.n_links} links x 3 steps, "
+          f"{ms['1k']!r} ms/timeline, {n_probe['1k']} probe launches; bandwidth "
+          f"{cs.fabric.bandwidth.tolist()}, per-step mean probes {mean(cs.probes)} (per-link "
+          f"fields of links {idx[:3]}..{idx[-3:]} ({len(idx)}, link 100 among them) equal to "
+          f"the CPU plain path; {time.perf_counter() - t0:.1f} s of checks)")
+
+    # No-fault parity on the card: a quiet 6-step timeline on mid-linkflap's
+    # fabric; step 0 is bringup bit for bit, later steps spend nothing.
+    cfg, spec, tl = chaos_timeline("mid-linkflap")
+    quiet = make_fabric_timeline(spec, tl.n_steps, cfg.grid.n_ch)
+    _, cs = run_fabric_timeline(cfg, make_fabric_units(cfg, spec, seed), spec, quiet)
+    ref = bringup(cfg, spec, scheme="vtrs_ssm", seed=seed)
+    if not torch.equal(cs.wl[0], ref.ev.wl):
+        fail("no-fault parity: step 0 locks differ from bringup")
+    for f in cs.fabric._fields:
+        if not torch.equal(getattr(cs.fabric, f)[0], getattr(ref.stats, f)):
+            fail(f"no-fault parity: step-0 {f} differs from bringup")
+    if int(cs.probes[1:].sum()) != 0 or not torch.equal(cs.wl[1:], cs.wl[:1].expand_as(cs.wl[1:])):
+        fail("no-fault parity: quiet steps spent probes or moved locks")
+    print(f"[chaos] no-fault parity: {spec.n_links} links x {tl.n_steps} quiet steps, step 0 "
+          f"bit-identical to bringup, no probe spent after it")
+    return launches
+
+
+def _means(a, places=2):
+    """(S, K) per-link stat -> per-step link means, rounded, as fig22 does."""
+    import numpy as np
+
+    return [round(float(v), places) for v in np.asarray(a.cpu(), np.float32).mean(axis=1)]
+
+
+def records_fabric(device: str = "cuda") -> dict:
+    """``BENCH_sweep.json``'s fig21 and fig22 records from units drawn as the
+    benchmarks drew them (seed 33, JAX's earlier threefry layout): fig21's
+    ``link_up``, ``cafp``, ``matched``, ``route_up``, ``route_cont`` and
+    ``bandwidth`` grids after the records' rounding to 4 decimals; fig22's
+    per-step link means at 2 decimals, its fabric-level steps at 4, its
+    gates, and the no-fault parity.  The records' ``link_chunk``,
+    ``point_bytes`` and ``chunk_budget`` describe the reference's XLA memory
+    accounting and are not held."""
+    import numpy as np
+
+    from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core.sweep import SweepRequest, sweep
+    from repro_torch.fabric import bringup, make_fabric_timeline, make_fabric_units
+    from repro_torch.fabric import run_fabric_timeline
+
+    records = {r["name"]: r["derived"]
+               for r in json.loads((ROOT / "BENCH_sweep.json").read_text())["records"]}
+    held = {}
+    r4 = lambda x: np.round(np.asarray(x.cpu(), np.float32), 4).tolist()  # noqa: E731
+
+    def hold(rec_name, field, got, want):
+        if got != want:
+            fail(f"record {rec_name} {field}: {got} against the record's {want}")
+        held.setdefault(rec_name.split("/")[0], set()).add(rec_name)
+
+    cfg_key, spec = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg = WDM_CONFIGS[cfg_key]
+    units = make_fabric_units(cfg, spec, FABRIC_SEED, device, partitionable=False)
+    for scheme in FIG21_SCHEMES:
+        name = f"fig21/wdm16-1k/{scheme}"
+        rec = records[name]
+        res = sweep(SweepRequest(cfg=cfg, units=units, scheme=scheme, fabric=spec,
+                                 axes=fig21_axes(cfg))).data
+        for field in ("link_up", "cafp", "matched", "route_up", "route_cont", "bandwidth"):
+            hold(name, field, r4(getattr(res, field)), rec[field])
+    res = bringup(cfg, spec, tr_mean=float(fig21_axes(cfg)["tr_mean"][0]), scheme="vtrs_ssm",
+                  seed=FABRIC_SEED, device=device, partitionable=False)
+    hold("fig21/wdm16-1k/vtrs_ssm", "bringup link_up at (0, 0)", r4(res.stats.link_up),
+         records["fig21/wdm16-1k/vtrs_ssm"]["link_up"][0][0])
+
+    # fig22: the no-fault parity on mid-linkflap's fabric, then each
+    # scenario warm and cold.
+    cfg, spec, tl = chaos_timeline("mid-linkflap", device=device)
+    units = make_fabric_units(cfg, spec, FABRIC_SEED, device, partitionable=False)
+    quiet = make_fabric_timeline(spec, tl.n_steps, cfg.grid.n_ch, device=device)
+    _, cs = run_fabric_timeline(cfg, units, spec, quiet)
+    ref = bringup(cfg, spec, seed=FABRIC_SEED, device=device, partitionable=False)
+    parity = (bool((cs.wl[0] == ref.ev.wl).all()) and int(cs.probes[1:].sum()) == 0
+              and all(bool((getattr(cs.fabric, f)[0] == getattr(ref.stats, f)).all())
+                      for f in cs.fabric._fields))
+    hold("fig22/parity", "bit_identical", parity, records["fig22/parity"]["bit_identical"])
+    hold("fig22/parity", "parity_links", spec.n_links, records["fig22/parity"]["parity_links"])
+    for name, scheme in _chaos_cells():
+        rec_name = f"fig22/{name}/{scheme}"
+        rec = records[rec_name]
+        cfg, spec, tl = chaos_timeline(name, device=device)
+        units = make_fabric_units(cfg, spec, FABRIC_SEED, device, partitionable=False)
+        _, warm = run_fabric_timeline(cfg, units, spec, tl, scheme=scheme, warm=True)
+        _, cold = run_fabric_timeline(cfg, units, spec, tl, scheme=scheme, warm=False)
+        feas = np.asarray(warm.feasible.cpu(), bool)[1:]
+        wp = np.asarray(warm.probes.cpu(), np.float32)[1:]
+        cp = np.asarray(cold.probes.cpu(), np.float32)[1:]
+        bw = np.asarray(warm.fabric.bandwidth.cpu(), np.float32)
+        got = {
+            "feasible_frac": _means(warm.feasible), "warm_probes": _means(warm.probes),
+            "cold_probes": _means(cold.probes), "warm_broken": _means(warm.broken),
+            "warm_churn": _means(warm.churn), "warm_locked": _means(warm.locked),
+            "cold_locked": _means(cold.locked),
+            "bandwidth": [round(float(v), 4) for v in bw],
+            "feasible_warm_probes": round(float(wp[feas].mean()), 2),
+            "feasible_cold_probes": round(float(cp[feas].mean()), 2),
+            "warm_wins_probes": bool(wp[feas].mean() < cp[feas].mean()),
+            "warm_locked_ge_cold": bool(int(warm.locked[-1].sum()) >= int(cold.locked[-1].sum())),
+            "bandwidth_recovered": bool(float(bw[-1]) >= float(bw[0]) - 1e-6),
+        }
+        for field in ("route_up", "route_served", "route_bandwidth", "matched"):
+            got[field] = [round(float(v), 4) for v in getattr(warm.fabric, field).tolist()]
+        for field, value in got.items():
+            hold(rec_name, field, value, rec[field])
+    return {fig: len(names) for fig, names in held.items()}
 
 
 def phase_timing(seed: int) -> dict:
@@ -1596,13 +2087,25 @@ def main() -> int:
     for k, v in phase_flat_grids(args.seed).items():
         max_err[k] = max(max_err[k], v)
     print(f"[env] flattened-grid kernel checks {time.perf_counter() - t_flat:.1f} s")
-    # Each kernel's launches: the sum over the four paths.
-    paths = (phase_main(args.seed), phase_lta(args.seed), phase_protocol(args.seed),
-             phase_temporal(args.seed, N_SIDE), phase_sweep(args.seed))
+    t_fab = time.perf_counter()
+    for k, v in phase_fabric_kernels(args.seed).items():
+        max_err[k] = max(max_err[k], v)
+    print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
+    # Each kernel's launches: the sum over the paths.
+    paths = []
+    for name, phase in (("main", phase_main), ("lta", phase_lta), ("protocol", phase_protocol),
+                        ("temporal", lambda seed: phase_temporal(seed, N_SIDE)),
+                        ("sweep", phase_sweep), ("fabric", phase_fabric),
+                        ("chaos", phase_chaos)):
+        t_phase = time.perf_counter()
+        paths.append(phase(args.seed))
+        print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
-    print(f"[env] launches over the main, LtA, protocol, temporal and sweep paths: "
-          f"{launches}")
+    print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric and chaos "
+          f"paths: {launches}")
+    t_rec = time.perf_counter()
     phase_records()
+    print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")
     rows = phase_timing(args.seed)
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -1,10 +1,10 @@
 """Carry the reference package's inputs across as plain numbers.
 
-The parity tests draw unit samples with the reference (JAX threefry draws
-are not reproduced here) and hand the same float32 arrays to both packages;
-they can also hand the reference's search tables, protocol states and
-timelines to both packages, so that arbiters, warm starts and timelines are
-compared on identical inputs.
+The parity tests can hand the reference's unit samples (the port also draws
+them itself: ``core.prng``), search tables, protocol states, timelines,
+fabric units and fabric timelines to both packages as the same numpy
+arrays, so that arbiters, warm starts and timelines are compared on
+identical inputs.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from .core.protocol import ProtocolState
 from .core.sampling import UnitSamples, resolve_device
 from .core.search_table import SearchTables
 from .core.temporal import Timeline
+from .fabric.chaos import FabricTimeline
+from .fabric.sampling import FabricUnits
 
 
 def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
@@ -74,4 +76,27 @@ def timeline_from_numpy(ring_drift, laser_drift, lane_alive, ring_alive,
         laser_drift=torch.tensor(np.asarray(laser_drift, dtype=np.float32)).to(dev),
         lane_alive=torch.tensor(np.asarray(lane_alive, dtype=bool)).to(dev),
         ring_alive=torch.tensor(np.asarray(ring_alive, dtype=bool)).to(dev),
+    )
+
+
+def fabric_units_from_numpy(go, llv, g_go, g_llv, rlv, fsr, tr, device=None) -> FabricUnits:
+    """``FabricUnits`` from the reference's fields as numpy arrays (float32)."""
+    dev = resolve_device(device)
+    return FabricUnits(*(
+        torch.tensor(np.asarray(a, dtype=np.float32)).to(dev)
+        for a in (go, llv, g_go, g_llv, rlv, fsr, tr)
+    ))
+
+
+def fabric_timeline_from_numpy(ring_drift, laser_drift, lane_alive, ring_alive, link_alive,
+                               disturbed, device=None) -> FabricTimeline:
+    """``FabricTimeline`` from the reference's fields: drifts as float32,
+    liveness and disturbance as bool."""
+    dev = resolve_device(device)
+    f32 = lambda a: torch.tensor(np.asarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    flag = lambda a: torch.tensor(np.asarray(a, dtype=bool)).to(dev)  # noqa: E731
+    return FabricTimeline(
+        ring_drift=f32(ring_drift), laser_drift=f32(laser_drift),
+        lane_alive=flag(lane_alive), ring_alive=flag(ring_alive),
+        link_alive=flag(link_alive), disturbed=flag(disturbed),
     )

@@ -169,3 +169,22 @@ def instantiate(
     transforms = {name: per_trial(value, P, P * T, dev)[:, None] if is_per_point(value)
                   else value for name, value in over.items() if name in transform_axes()}
     return apply_axis_transforms(sys, transforms, cfg)
+
+
+def sample_systems(
+    key,
+    cfg: ArbitrationConfig,
+    n_laser: int = 100,
+    n_ring: int = 100,
+    variations: Variations | None = None,
+    *,
+    device=None,
+    partitionable: bool = True,
+) -> SystemBatch:
+    """Draw units from a threefry key (``prng.key_from_seed``) and
+    instantiate them in one go: the reference's ``sample_systems``, its
+    systems bit for bit, on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+    units = draw_unit_samples(key, cfg.grid.n_ch, n_laser, n_ring,
+                              partitionable=partitionable)
+    return instantiate(cfg, UnitSamples(*(u.to(dev) for u in units)), variations)

@@ -41,10 +41,12 @@ Engine mechanics:
 
 The device of the unit samples selects the path, as everywhere in the port:
 CUDA units go through the hand-written kernels, CPU units through their
-plain versions.  ``mesh=`` (multi-device sweeps) and ``fabric=`` (fabric
-sweeps) are not ported yet and raise ``NotImplementedError``; the
-reference's phase telemetry (its recorder's chunk-plan notes and measured
-calls) arrives with the observability slice.
+plain versions.  Fabric sweeps (``fabric=``, ``repro_torch.fabric``) give
+each grid point its own copy of the fabric's links, so a chunk of points is
+one batch of links, and each link chunk one batch of 2 trials a link.
+``mesh=`` (multi-device sweeps) is not ported yet and raises
+``NotImplementedError``; the reference's phase telemetry (its recorder's
+chunk-plan notes and measured calls) arrives with the observability slice.
 
 ``sweep_reference`` is the per-point loop over the single-point entry
 points: the engine's oracle, consuming the same validated ``SweepRequest``.
@@ -78,22 +80,39 @@ _CHUNK_BUDGET = 4 * 1024 ** 3
 
 
 def _tree_map(fn: Callable, *trees):
-    """``fn`` over the tensors of equal-structured (named) tuples."""
+    """``fn`` over the tensors of equal-structured (named) tuples; a None
+    leaf stays None."""
     first = trees[0]
+    if first is None:
+        return None
     if isinstance(first, tuple):
         out = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
         return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
     return fn(*trees)
 
 
+def _leaves(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
 def chunked_map(fn: Callable, xs, *, chunk: int):
-    """Run ``fn(xs[i:i + chunk])`` over the leading axis of ``xs`` (a tensor
-    or an array) and concatenate the results (a tensor or a named tuple of
-    tensors, each with the chunk's leading axis) along it.  Peak memory is
-    one chunk's; the last chunk is simply smaller."""
+    """Run ``fn`` on chunks of ``chunk`` items of ``xs`` and concatenate the
+    results along their leading axis.
+
+    ``xs`` is a tensor, an array, or a (named, nested) tuple of them sharing
+    the leading axis (the fabric layer's ``FabricUnits``), each chunk sliced
+    alike; the results are tensors or (named) tuples of tensors, each with
+    the chunk's leading axis, None leaves staying None.  Peak memory is one
+    chunk's; the last chunk is simply smaller."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    outs = [fn(xs[start:start + chunk]) for start in range(0, xs.shape[0], chunk)]
+    size = _leaves(xs)[0].shape[0]
+    outs = [fn(_tree_map(lambda a: a[start:start + chunk], xs))
+            for start in range(0, size, chunk)]
     return _tree_map(lambda *parts: torch.cat(parts), *outs)
 
 
@@ -144,8 +163,21 @@ class SweepRequest:
             instead of a one-shot evaluation, and the result grids are
             trial-mean ``TemporalStats`` fields with a trailing step axis.
             Requires a ``protocol_*`` scheme and ``metric="eval"``.
-    mesh, fabric: the reference's multi-device and fabric sweeps; not
-            ported yet (``NotImplementedError``).
+    fabric: optional ``repro_torch.fabric.FabricSpec``.  Each grid point
+            then brings up the whole fabric (per-link scheme arbitration +
+            the network-level wavelength-assignment constraints) and the
+            result grids are ``FabricStats`` fields.  Requires a scheme,
+            ``metric="eval"`` and ``units`` from ``make_fabric_units``
+            matching the spec.  The link axis is chunked inside each chunk
+            of points against the same memory budget.  With a
+            ``FabricTimeline`` as ``timeline`` each grid point runs a whole
+            chaos timeline (``run_fabric_timeline`` defaults) and the grids
+            are link-mean ``FabricChaosStats`` fields with a trailing step
+            axis; any scheme is accepted.  A per-transceiver ``Timeline``
+            with ``fabric=``, or a ``FabricTimeline`` without it, is
+            rejected at construction.
+    mesh:   the reference's multi-device sweeps; not ported yet
+            (``NotImplementedError``).
 
     Validation happens at construction, so an invalid request never reaches
     the engine (or the reference loop).
@@ -169,10 +201,6 @@ class SweepRequest:
             raise NotImplementedError(
                 "sweep(mesh=...): multi-device sweeps are not ported yet; they "
                 "arrive after single-device parity (ROADMAP queue 1)")
-        if self.fabric is not None:
-            raise NotImplementedError(
-                "sweep(fabric=...): fabric sweeps arrive with the fabric slice "
-                "of the port (ROADMAP queue 1, items 3-4)")
         axes = {
             str(k): np.asarray(v, np.float32).reshape(-1)
             for k, v in dict(self.axes).items()
@@ -183,6 +211,8 @@ class SweepRequest:
         fixed = {str(k): v for k, v in dict(fixed or {}).items()}
         object.__setattr__(self, "axes", axes)
         object.__setattr__(self, "fixed", fixed)
+        if self.fabric is not None:
+            self._check_fabric()
         _validate_request(
             tuple(axes), tuple(fixed),
             metric=self.metric, policy=self.policy, scheme=self.scheme,
@@ -197,7 +227,15 @@ class SweepRequest:
             _maybe_validate(axis_spec(name), v)
         if self.chunk_size is not None and self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
-        if self.timeline is not None:
+        if self.timeline is not None and self.fabric is None:
+            from ..fabric.chaos import FabricTimeline  # local: fabric imports this module
+
+            if isinstance(self.timeline, FabricTimeline):
+                raise ValueError(
+                    "a FabricTimeline carries per-link faults but no "
+                    "topology; pass the matching fabric=FabricSpec(...) "
+                    "alongside it"
+                )
             if not isinstance(self.timeline, Timeline):
                 raise ValueError(
                     "timeline sweeps take a core.temporal.Timeline, got "
@@ -214,6 +252,49 @@ class SweepRequest:
                 raise ValueError(
                     f"timeline has {n_ch} channels but cfg has {len(self.cfg.s)}"
                 )
+
+    def _check_fabric(self) -> None:
+        """Fabric-specific diagnostics, ahead of the generic metric and
+        policy checks: a fabric request that also trips e.g. the min_tr rule
+        says what is wrong with the *fabric* usage."""
+        from ..fabric.chaos import FabricTimeline  # local: fabric imports this module
+        from ..fabric.sampling import FabricUnits
+
+        if self.scheme is None:
+            raise ValueError(
+                "fabric sweeps arbitrate every link with an oblivious "
+                "scheme; pass scheme=..., not policy=..."
+            )
+        if self.metric != "eval":
+            raise ValueError("fabric sweeps require metric='eval'")
+        if self.timeline is not None:
+            if not isinstance(self.timeline, FabricTimeline):
+                raise ValueError(
+                    "fabric sweeps compose with a fabric-scoped "
+                    "FabricTimeline (repro_torch.fabric.make_fabric_timeline); "
+                    "a per-transceiver Timeline has no link addressing "
+                    f"at fabric scale (got {type(self.timeline).__name__})"
+                )
+            if self.timeline.n_links != self.fabric.n_links:
+                raise ValueError(
+                    f"timeline spans {self.timeline.n_links} links but "
+                    f"the fabric spec describes {self.fabric.n_links}"
+                )
+            if self.timeline.n_ch != len(self.cfg.s):
+                raise ValueError(
+                    f"timeline has {self.timeline.n_ch} channels but "
+                    f"cfg has {len(self.cfg.s)}"
+                )
+        if not isinstance(self.units, FabricUnits):
+            raise ValueError(
+                "fabric sweeps take FabricUnits from "
+                "repro_torch.fabric.make_fabric_units, not UnitSamples"
+            )
+        if self.units.n_links != self.fabric.n_links:
+            raise ValueError(
+                f"units carry {self.units.n_links} links but the spec "
+                f"describes {self.fabric.n_links}"
+            )
 
     def replace(self, **kw) -> "SweepRequest":
         return dataclasses.replace(self, **kw)
@@ -330,6 +411,34 @@ def _eval_chunk(cfg, units, fixed, timeline, points, *, names, metric, policy,
     )
 
 
+def _fabric_chunk(cfg, units, spec, fixed, timeline, points, *, names, scheme,
+                  link_chunk):
+    """One chunk of Pc grid points of a fabric sweep as Pc copies of the
+    fabric's K links (point-major), each link carrying its point's values,
+    so every batch holds Pc * link_chunk links -> per-point ``FabricStats``
+    (or link-mean ``FabricChaosStats`` with a trailing step axis) with a
+    leading (Pc,) axis."""
+    from ..fabric.bringup import fabric_stats_impl  # local: fabric imports this module
+    from ..fabric.chaos import FabricTimeline, _run_chaos, summarize_chaos
+    from ..fabric.sampling import FabricUnits
+
+    n_points, k = points.shape[0], spec.n_links
+    over = dict(fixed)
+    over.update({name: torch.from_numpy(np.ascontiguousarray(points[:, i])).repeat_interleave(k)
+                 for i, name in enumerate(names)})
+    var = Variations(**over)
+    tiled = FabricUnits(*(u.repeat((n_points,) + (1,) * (u.dim() - 1)) for u in units))
+    if timeline is None:
+        return fabric_stats_impl(cfg, tiled, spec, var, scheme=scheme,
+                                 link_chunk=n_points * link_chunk)
+    tl = FabricTimeline(*(a.repeat((1, n_points) + (1,) * (a.dim() - 2)) for a in timeline))
+    _, cs = _run_chaos(cfg, tiled, spec, tl, var, n_points=n_points, scheme=scheme, warm=True,
+                       transactional=True, patience=4, hysteresis=0.0,
+                       link_chunk=n_points * link_chunk)
+    # link means per point and step: (S, Pc) -> (Pc, S)
+    return _tree_map(lambda a: a.movedim(0, -1), summarize_chaos(cs))
+
+
 def _afp_from_trial_min_tr(trial_min_tr: torch.Tensor, tr_values) -> torch.Tensor:
     """(..., T) per-trial min TR x (L,) TR axis -> (..., L) AFP grid.
 
@@ -365,12 +474,25 @@ def sweep(request: SweepRequest) -> SweepResult:
         else:
             points = np.zeros((1, 0), np.float32)  # a single all-defaults point
 
-    chunk = request.chunk_size or _auto_chunk(cfg, units, points.shape[0], scheme)
     fixed = {k: np.float32(v) for k, v in request.fixed.items()}
-    out = chunked_map(
-        lambda pts: _eval_chunk(cfg, units, fixed, request.timeline, pts, names=names,
-                                metric=metric, policy=policy, scheme=scheme),
-        points, chunk=chunk)
+    if request.fabric is not None:
+        # Budget the *link* axis first (one fabric point is a 2 * link_chunk-
+        # trial scheme evaluation), then fit grid points over it.
+        from ..fabric.bringup import auto_link_chunk  # local: fabric imports this module
+
+        link_chunk = auto_link_chunk(cfg, request.fabric.n_links)
+        per_point = scheme_point_bytes(cfg, 2 * link_chunk)
+        chunk = request.chunk_size or int(
+            np.clip(_CHUNK_BUDGET // max(per_point, 1), 1, points.shape[0]))
+        evaluate = lambda pts: _fabric_chunk(  # noqa: E731
+            cfg, units, request.fabric, fixed, request.timeline, pts, names=names,
+            scheme=scheme, link_chunk=link_chunk)
+    else:
+        chunk = request.chunk_size or _auto_chunk(cfg, units, points.shape[0], scheme)
+        evaluate = lambda pts: _eval_chunk(  # noqa: E731
+            cfg, units, fixed, request.timeline, pts, names=names, metric=metric,
+            policy=policy, scheme=scheme)
+    out = chunked_map(evaluate, points, chunk=chunk)
     if tr_idx is not None:
         afp = _afp_from_trial_min_tr(out.reshape(shape + out.shape[1:]),
                                      request.axes["tr_mean"])
@@ -430,6 +552,12 @@ def sweep_reference(request: SweepRequest) -> SweepResult:
             "sweep_reference has no temporal path; run_timeline is itself "
             "the per-point primitive a timeline sweep maps; compare against "
             "direct run_timeline calls instead"
+        )
+    if request.fabric is not None:
+        raise NotImplementedError(
+            "sweep_reference has no fabric path; its per-point primitive is "
+            "fabric.bringup, and the per-link oracle one flat "
+            "oblivious_arbitrate over every link's trials"
         )
     names, points, shape = _grid_points(request.axes)
     outs = []

@@ -35,6 +35,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels._build, repro_torch.kernels.probe\n"
         "import repro_torch.core.protocol, repro_torch.core.temporal\n"
         "import repro_torch.core.sweep, repro_torch.core.prng\n"
+        "import repro_torch.fabric, repro_torch.configs.fabric\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

@@ -313,11 +313,15 @@ def test_sweep_validation_errors():
 
 
 def test_mesh_and_fabric_are_not_ported_yet():
+    """``mesh=`` is not ported yet.  ``fabric=`` is (tests/test_torch_fabric.py):
+    a fabric request refuses a plain sweep's transceiver units."""
+    from repro_torch.configs.fabric import FABRIC_TINY
+
     _, _, tcfg, tu = _pair("wdm8-natural", n=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         tsw.sweep_policy(tcfg, tu, "ltc", AXES, mesh=object())
-    with pytest.raises(NotImplementedError, match="fabric"):
-        tsw.SweepRequest(cfg=tcfg, units=tu, scheme="seq", axes=AXES, fabric=object())
+    with pytest.raises(ValueError, match="fabric sweeps take FabricUnits"):
+        tsw.SweepRequest(cfg=tcfg, units=tu, scheme="seq", axes=AXES, fabric=FABRIC_TINY)
 
 
 def test_kernel_wrappers_refuse_more_trials_than_a_launch_holds():
