@@ -41,7 +41,10 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             WDM16 trials with the (T, N, N) mask of a chaos step whose dead
             links (and a dead comb) give all-False masks, ``probe`` on those
             empty tables, ``match`` with the all-zero rows of dead rings and
-            links, and ``feasibility`` at the same trials;
+            links, and ``feasibility`` at the same trials; and the
+            interconnect's warm-repair tables: ``table_build`` on the
+            runtime's 2,016 WDM16 trials with the 2-D (T, N) mask of links
+            100 and 1,007 dead (all-False rows), and ``probe`` on them;
 3. main     drive each ported path with the launch counts set to 0 just
             before and read just after (each kernel's ``launches`` in the
             kernels line is its sum over the paths), at 100 x 100 = 10,000
@@ -68,7 +71,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             constraints-off parity on all 1,008 links); and the chaos path
             (``phase_chaos``: fig22's four scenarios warm and cold,
             ``tiny-flap`` and a 1,008-link flap timeline, the no-fault
-            parity).  Per-trial results on a 20 x 20 subset (per-link
+            parity); the interconnect runtime (``phase_interconnect``:
+            ``optics.interconnect`` on 1,008 links with a comb per link,
+            vtrs_ssm, WDM8 at TR 4.6 and WDM16 at TR 0.40 FSR: bringup,
+            rearbitrate, inject_link_failure of links 100 and 1,007,
+            rearbitrate, expected_failure_rates, each step held against the
+            CPU plain path on all 1,008 links); and campaign checkpoints
+            (``phase_campaign``: the temporal path's two scenarios split at
+            step 4, saved, restored onto the card and resumed, equal to the
+            uninterrupted runs).  Per-trial results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -94,6 +105,7 @@ beside it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -143,6 +155,12 @@ FABRIC_SEED = 33                     # the fabric benchmarks' seed
 #: first links, links 100 and 101 (100 is the one fig22's 1,008-link
 #: timeline flaps) and the last 12 (the last bundle's, on FABRIC_1K).
 FABRIC_SUBSET = tuple(range(0, 12)) + (100, 101) + tuple(range(-12, 0))
+#: The interconnect runtime's operating points: the trainer's WDM8 fabric at
+#: the reference tests' TR 4.6 nm, and WDM16 at fig21's TR 0.40 FSR (None:
+#: in FSRs), and the links ``phase_interconnect`` kills.
+RUNTIME_POINTS = (("wdm8-g200", 4.6, None), ("wdm16-g200", None, 0.40))
+RUNTIME_DEAD = (100, 1007)
+CAMPAIGN_SPLIT = 4                   # after hot-swap's lane kill (3), before its swap (6)
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1146,9 +1164,10 @@ def phase_protocol(seed: int) -> dict:
     return launches
 
 
-def phase_temporal(seed: int, side: int) -> dict:
+def phase_temporal(seed: int, side: int, runs: dict | None = None) -> dict:
     """The temporal path: run_timeline warm and cold on two drift scenarios
-    at side x side trials, then its checks."""
+    at side x side trials, then its checks.  ``runs`` receives each
+    scenario's warm (final state, stats) for ``phase_campaign``."""
     import torch
 
     from repro_torch.configs.wdm import drift_timeline
@@ -1199,6 +1218,8 @@ def phase_temporal(seed: int, side: int) -> dict:
                   f"{mean(stats.broken)}, churn {mean(stats.churn)}, feasible "
                   f"{mean(stats.feasible)} (per-step stats and final state on the "
                   f"subset equal to the CPU plain path)")
+    if runs is not None:
+        runs.update({name: out[name, True] for name in DRIFT_CELLS})
     return launches
 
 
@@ -1501,14 +1522,19 @@ def phase_fabric_kernels(seed: int) -> dict:
     WDM16 trials with a per-link (T, N, N) mask of a chaos step, dead links
     all-False rows; ``match`` with the all-zero rows of dead rings and
     links; ``probe`` on the empty tables of dead links; ``feasibility`` at
-    the same 2,016 trials.  All exactly against the plain versions."""
+    the same 2,016 trials; and the interconnect's warm-repair tables: the
+    runtime's per-link-comb fabric with a 2-D (2K, N) mask whose dead links
+    (``RUNTIME_DEAD``) give all-False rows, and ``probe`` on them.  All
+    exactly against the plain versions."""
+    import numpy as np
     import torch
 
     from repro_torch.configs.fabric import FABRIC_CONFIGS
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core.matching import adjacency_bitmask
     from repro_torch.core.reach import as_f32, reach_matrix
-    from repro_torch.fabric import instantiate_links, make_fabric_timeline, make_fabric_units
+    from repro_torch.fabric import (FabricSpec, instantiate_links, make_fabric_timeline,
+                                    make_fabric_units)
     from repro_torch.fabric.chaos import _drifted, _visibility
     from repro_torch.kernels.bitmask_match import perfect_matching, perfect_matching_plain
     from repro_torch.kernels.feasibility import feasibility, feasibility_plain
@@ -1583,6 +1609,41 @@ def phase_fabric_kernels(seed: int) -> dict:
     for tag, g, w in zip(("ltd", "ltc"), got, want):
         compare(f"feasibility fabric1k {tag}", g, w, errs["feasibility"])
     print(f"[kernels] feasibility fabric1k: T={sys_.laser.shape[0]} bit-exact")
+
+    # The interconnect's warm repair: the runtime's per-link-comb fabric with
+    # links 100 and 1,007 dead, a 2-D (2K, N) mask of all-False rows 2k, 2k+1.
+    rt_spec = FabricSpec(pods=spec.pods, links_per_pair=spec.links_per_pair, comb_group="link")
+    rt_sys = instantiate_links(cfg, rt_spec, make_fabric_units(cfg, rt_spec, seed))
+    alive = np.ones(k, bool)
+    alive[list(RUNTIME_DEAD)] = False
+    vis2 = torch.from_numpy(np.repeat(alive, 2)).cuda()[:, None].expand(-1, n).contiguous()
+    dead_rows = [r for l in RUNTIME_DEAD for r in (2 * l, 2 * l + 1)]
+    tr = as_f32(FIG21_TRS_X[0] * cfg.grid.fsr, rt_sys.tr_unit.device) * rt_sys.tr_unit
+    args = (rt_sys.laser, rt_sys.ring, rt_sys.fsr, tr)
+    kw = dict(max_alias=cfg.max_fsr_alias, max_entries=3 * n)
+    got = build_tables(*args, visible=vis2, **kw)
+    want = build_tables_plain(*(a.cpu() for a in args), visible=vis2.cpu(), **kw)
+    for tag, g, w in zip(("delta", "wl", "n_valid"), got, want):
+        compare(f"table_build runtime 2-D mask {tag}", g, w, errs["table_build"])
+    if bool(got[2][dead_rows].any()) or int((got[2] == 0).all(dim=1).sum()) < len(dead_rows):
+        fail("table_build runtime 2-D mask: the dead links' tables are not empty")
+    print(f"[kernels] table_build runtime fabric (comb per link) TR={FIG21_TRS_X[0]} FSR: "
+          f"T={args[0].shape[0]} with a 2-D (T, N) mask, rows {dead_rows} all False; exact "
+          f"(their tables empty)")
+    taken = (torch.rand(got[1].shape[0], n, generator=gen) < 0.5).cuda()
+    for c in (1, 4):
+        wl = got[1][:, :c].contiguous()
+        floor = torch.randint(0, 3 * n + 1, (wl.shape[0], c), generator=gen,
+                              dtype=torch.int32).cuda()
+        floor[dead_rows] = 0
+        g = masked_research(wl, taken, floor)
+        w = masked_research_plain(wl, taken, floor)
+        compare(f"probe runtime C={c} first", g[0], w[0], errs["probe"])
+        compare(f"probe runtime C={c} found", g[1], w[1], errs["probe"])
+        if bool(g[1][dead_rows].any()):
+            fail(f"probe runtime C={c}: found an entry in a dead link's empty table")
+        print(f"[kernels] probe runtime fabric C={c}: T={wl.shape[0]} exact (the dead "
+              f"links' {len(dead_rows)} rows of empty tables, none found)")
     return {key: max(v) for key, v in errs.items()}
 
 
@@ -1830,6 +1891,197 @@ def phase_chaos(seed: int) -> dict:
         fail("no-fault parity: quiet steps spent probes or moved locks")
     print(f"[chaos] no-fault parity: {spec.n_links} links x {tl.n_steps} quiet steps, step 0 "
           f"bit-identical to bringup, no probe spent after it")
+    return launches
+
+
+def _runtime_cells():
+    """(config key, cfg, tr_mean) of each ``RUNTIME_POINTS`` entry."""
+    from repro_torch.configs.wdm import WDM_CONFIGS
+
+    cells = []
+    for key, tr_nm, tr_fsr in RUNTIME_POINTS:
+        cfg = WDM_CONFIGS[key]
+        cells.append((key, cfg, tr_nm if tr_fsr is None else tr_fsr * cfg.grid.fsr))
+    return cells
+
+
+def _runtime_sequence(cfg, tr, seed, device=None, timer=None):
+    """The interconnect runtime's sequence on FABRIC_1K's 8 pods x 36 links:
+    bringup, rearbitrate, inject_link_failure(RUNTIME_DEAD), rearbitrate,
+    expected_failure_rates.  ``timer`` wraps each call (``timed_call``)."""
+    from repro_torch.optics import interconnect as ic
+
+    timer = timer or (lambda fn: (fn(), None, None))
+    steps = {}
+    steps["bringup"] = timer(lambda: ic.bringup(8, 36, cfg, tr_mean=tr, scheme="vtrs_ssm",
+                                                seed=seed, device=device))
+    fab0 = steps["bringup"][0]
+    steps["rearbitrate"] = timer(lambda: ic.rearbitrate(fab0, cfg))
+    fab1 = steps["rearbitrate"][0][0]
+    steps["inject"] = timer(lambda: ic.inject_link_failure(fab1, list(RUNTIME_DEAD)))
+    hurt = steps["inject"][0]
+    steps["rearbitrate after inject"] = timer(lambda: ic.rearbitrate(hurt, cfg))
+    steps["expected_failure_rates"] = timer(lambda: ic.expected_failure_rates(
+        cfg, tr, "vtrs_ssm", seed, device=device))
+    return steps
+
+
+def _fabric_states(steps):
+    """(label, FabricState, rounds) of each runtime step that yields one."""
+    return [("bringup", steps["bringup"][0], None),
+            ("rearbitrate", *steps["rearbitrate"][0]),
+            ("inject", steps["inject"][0], None),
+            ("rearbitrate after inject", *steps["rearbitrate after inject"][0])]
+
+
+def phase_interconnect(seed: int) -> dict:
+    """The interconnect runtime at full width: FABRIC_1K's 8 pods x 36 links
+    = 1,008 links with a comb per link (what ``optics.interconnect.bringup``
+    builds), vtrs_ssm, at each ``RUNTIME_POINTS`` entry: bringup,
+    rearbitrate, inject_link_failure of links 100 and 1,007, rearbitrate
+    again and expected_failure_rates, each timed, with the launch counts set
+    to 0 just before and read just after.  Then the runtime's invariants
+    (killed links down with broken lock rows, no survivor loses lanes,
+    links healthy at bring-up untouched) and every step against the CPU
+    plain path run on all 1,008 links: every ``LinkHealth``, the rounds, the
+    handle's lock state and ``link_alive``, and the failure rates.  (A link
+    subset is not exact here: ``rearbitrate`` stops when no degraded record
+    of the whole fabric changed, so its passes depend on every link.)"""
+    import numpy as np
+    import torch
+
+    cells = _runtime_cells()
+    wrappers = reset_launches()
+    runs = {key: _runtime_sequence(cfg, tr, seed, timer=timed_call) for key, cfg, tr in cells}
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[interconnect] launches on the interconnect path: {launches}")
+    for k in ("table_build", "feasibility", "probe"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the interconnect path")
+
+    for key, cfg, tr in cells:
+        t0 = time.perf_counter()
+        steps = runs[key]
+        n = cfg.grid.n_ch
+        states = _fabric_states(steps)
+        fab0, fab1, hurt, fab2 = (st for _, st, _ in states)
+        r1, r2 = states[1][2], states[3][2]
+        for label, st, _ in states:
+            if len(st.links) != 1008 or st.handle.state.lock.shape != (2016, n) \
+                    or st.handle.state.lock.device.type != "cuda":
+                fail(f"interconnect {key} {label}: {len(st.links)} links, state "
+                     f"{tuple(st.handle.state.lock.shape)} on {st.handle.state.lock.device}")
+        for st in (hurt, fab2):
+            for i in RUNTIME_DEAD:
+                if (st.links[i].lanes_up, st.links[i].failure) != (0, "link_down"):
+                    fail(f"interconnect {key}: killed link {i} reads {st.links[i]}")
+            if st.handle.link_alive is None or st.handle.link_alive[list(RUNTIME_DEAD)].any() \
+                    or int((~st.handle.link_alive).sum()) != len(RUNTIME_DEAD):
+                fail(f"interconnect {key}: link_alive {st.handle.link_alive}")
+        dead_rows = fab2.handle.state.lock.view(-1, 2, n)[list(RUNTIME_DEAD)]
+        if r2 > 0 and bool((dead_rows >= 0).any()):
+            fail(f"interconnect {key}: a killed link kept a lock through a warm pass")
+        if r2 == 0 and not torch.equal(fab2.handle.state.lock, fab1.handle.state.lock):
+            fail(f"interconnect {key}: a rearbitrate of no pass moved a lock")
+        for i in range(1008):
+            if fab1.links[i].lanes_up < fab0.links[i].lanes_up or (
+                    i not in RUNTIME_DEAD and fab2.links[i].lanes_up < fab1.links[i].lanes_up):
+                fail(f"interconnect {key}: link {i} lost lanes")
+            if not fab0.links[i].degraded:
+                keep = (fab0.links[i].lanes_up, fab0.links[i].spectral_shift)
+                for st in (fab1,) + (() if i in RUNTIME_DEAD else (fab2,)):
+                    if (st.links[i].lanes_up, st.links[i].spectral_shift) != keep:
+                        fail(f"interconnect {key}: healthy link {i} was touched")
+        t_cpu = time.perf_counter()
+        ref = _runtime_sequence(cfg, tr, seed, device="cpu")
+        cpu_s = time.perf_counter() - t_cpu
+        for (label, got, g_r), (_, want, w_r) in zip(states, _fabric_states(ref)):
+            if g_r != w_r or [dataclasses.asdict(l) for l in got.links] != \
+                    [dataclasses.asdict(l) for l in want.links]:
+                fail(f"interconnect {key} {label}: LinkHealth or rounds ({g_r} against "
+                     f"{w_r}) differ from the CPU plain path")
+            _hold_links(f"interconnect {key} {label} handle state", got.handle.state,
+                        want.handle.state)
+            if not (got.handle.link_alive is None and want.handle.link_alive is None) \
+                    and not np.array_equal(got.handle.link_alive, want.handle.link_alive):
+                fail(f"interconnect {key} {label}: link_alive differs from the CPU")
+        rates, ref_rates = steps["expected_failure_rates"][0], ref["expected_failure_rates"][0]
+        if rates != ref_rates:
+            fail(f"interconnect {key} expected_failure_rates {rates} against {ref_rates}")
+        deg = [len(st.degraded_links()) for _, st, _ in states]
+        times = ", ".join(f"{label} {ms!r} ms ({n_p} probe launches)"
+                          for label, (_, ms, n_p) in steps.items())
+        print(f"[interconnect] {key} TR={tr!r} vtrs_ssm, 1008 links (2016 trials): degraded "
+              f"links after bringup/rearbitrate/inject/rearbitrate {deg}, rounds {r1} and "
+              f"{r2}, bandwidth_fraction {fab0.bandwidth_fraction!r} -> "
+              f"{fab1.bandwidth_fraction!r}; rates {rates}; {times} (every LinkHealth, the "
+              f"rounds, the handle state and the rates equal to the CPU plain path on all "
+              f"1,008 links, {cpu_s:.1f} s of it; {time.perf_counter() - t0:.1f} s of checks)")
+    return launches
+
+
+def phase_campaign(seed: int, full: dict) -> dict:
+    """Campaign checkpoints: wdm16-thermal and wdm16-hotswap at N_SIDE x
+    N_SIDE trials, warm, run to ``CAMPAIGN_SPLIT``, the state saved with
+    ``save_campaign`` and restored onto the card with ``restore_campaign``,
+    then the tail; with the launch counts set to 0 just before and read just
+    after.  The restored state equals the saved one, and head + tail equal
+    ``full`` (``phase_temporal``'s uninterrupted warm runs) exactly."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.wdm import drift_timeline
+    from repro_torch.core import api
+    from repro_torch.core.temporal import (restore_campaign, run_timeline, save_campaign,
+                                           slice_timeline)
+
+    cells = []
+    for name in DRIFT_CELLS:
+        cfg, tl = drift_timeline(name)
+        cells.append((name, cfg, tl, api.make_units(cfg, seed, N_SIDE, N_SIDE),
+                      {"tr_mean": TEMPORAL_TR_X * cfg.grid.grid_spacing}))
+
+    wrappers = reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, cfg, tl, units, var in cells:
+            t, n = N_SIDE * N_SIDE, cfg.grid.n_ch
+            ckpt = Path(d) / name
+            head = timed_call(lambda: run_timeline(cfg, units, slice_timeline(
+                tl, 0, CAMPAIGN_SPLIT), var))
+            save = timed_call(lambda: save_campaign(ckpt, CAMPAIGN_SPLIT, head[0][0]))
+            restored = timed_call(lambda: restore_campaign(ckpt, t, n))
+            tail = timed_call(lambda: run_timeline(cfg, units, slice_timeline(
+                tl, CAMPAIGN_SPLIT), var, init_state=restored[0][1]))
+            out[name] = head, save, restored, tail
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[campaign] launches on the campaign path: {launches}")
+    for k in ("probe", "table_build", "match"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the campaign path")
+
+    for name, cfg, tl, units, var in cells:
+        (head, h_ms, h_p), (_, s_ms, _), ((step, resumed), r_ms, _), (tail, t_ms, t_p) = out[name]
+        final, stats = full[name]
+        if step != CAMPAIGN_SPLIT:
+            fail(f"campaign {name}: restored step {step}")
+        for f, g, w in zip(resumed._fields, resumed, head[0]):
+            if g.device.type != "cuda" or g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"campaign {name}: restored {f} differs from the saved state")
+        for f, g, w in zip(final._fields, tail[0], final):
+            if not torch.equal(g, w):
+                fail(f"campaign {name}: resumed final {f} differs from the uninterrupted run")
+        for f, h, tt, w in zip(stats._fields, head[1], tail[1], stats):
+            if not torch.equal(torch.cat([h, tt]), w):
+                fail(f"campaign {name}: head + tail {f} differs from the uninterrupted run")
+        print(f"[campaign] {name} T={N_SIDE * N_SIDE} split at step {CAMPAIGN_SPLIT} of "
+              f"{tl.n_steps}: head {h_ms!r} ms ({h_p} probe launches), save_campaign "
+              f"{s_ms!r} ms, restore_campaign {r_ms!r} ms, tail {t_ms!r} ms ({t_p} probe "
+              f"launches); restored state equal to the saved one, head + tail equal to the "
+              f"uninterrupted warm run (final state and per-step stats)")
     return launches
 
 
@@ -2092,17 +2344,18 @@ def main() -> int:
         max_err[k] = max(max_err[k], v)
     print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
     # Each kernel's launches: the sum over the paths.
-    paths = []
+    paths, temporal_runs = [], {}
     for name, phase in (("main", phase_main), ("lta", phase_lta), ("protocol", phase_protocol),
-                        ("temporal", lambda seed: phase_temporal(seed, N_SIDE)),
+                        ("temporal", lambda seed: phase_temporal(seed, N_SIDE, temporal_runs)),
                         ("sweep", phase_sweep), ("fabric", phase_fabric),
-                        ("chaos", phase_chaos)):
+                        ("chaos", phase_chaos), ("interconnect", phase_interconnect),
+                        ("campaign", lambda seed: phase_campaign(seed, temporal_runs))):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
-    print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric and chaos "
-          f"paths: {launches}")
+    print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
+          f"interconnect and campaign paths: {launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")

@@ -2,9 +2,9 @@
 
 The parity tests can hand the reference's unit samples (the port also draws
 them itself: ``core.prng``), search tables, protocol states, timelines,
-fabric units and fabric timelines to both packages as the same numpy
-arrays, so that arbiters, warm starts and timelines are compared on
-identical inputs.
+fabric units, fabric timelines and the interconnect's live fabric states to
+both packages as the same numpy arrays, so that arbiters, warm starts,
+timelines and warm repairs are compared on identical inputs.
 """
 from __future__ import annotations
 
@@ -15,11 +15,13 @@ import torch
 
 from .core.grid import ArbitrationConfig, DWDMGrid, VariationModel
 from .core.protocol import ProtocolState
-from .core.sampling import UnitSamples, resolve_device
+from .core.sampling import SystemBatch, UnitSamples, resolve_device
 from .core.search_table import SearchTables
 from .core.temporal import Timeline
 from .fabric.chaos import FabricTimeline
 from .fabric.sampling import FabricUnits
+from .fabric.spec import FabricSpec
+from .optics.interconnect import FabricHandle, FabricState, LinkHealth
 
 
 def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
@@ -100,3 +102,24 @@ def fabric_timeline_from_numpy(ring_drift, laser_drift, lane_alive, ring_alive, 
         lane_alive=flag(lane_alive), ring_alive=flag(ring_alive),
         link_alive=flag(link_alive), disturbed=flag(disturbed),
     )
+
+
+def fabric_state_from_fields(links: Sequence[Mapping], scheme: str, tr_mean: float,
+                             spec: Mapping, system: Sequence, state: Sequence,
+                             link_alive=None, device=None) -> FabricState:
+    """The interconnect's ``FabricState`` from the reference's as plain
+    fields: each link's ``LinkHealth`` fields (``dataclasses.asdict``), the
+    scheme, ``tr_mean``, the handle's ``FabricSpec`` fields, its system's
+    (laser, ring, fsr, tr_unit) float32 arrays, its state's (lock, entry,
+    cursor, probes) int32 arrays and its ``link_alive`` (None = all up)."""
+    dev = resolve_device(device)
+    handle = FabricHandle(
+        spec=FabricSpec(**dict(spec)),
+        system=SystemBatch(*(torch.tensor(np.asarray(a, dtype=np.float32)).to(dev)
+                             for a in system)),
+        state=state_from_numpy(*state, device=dev),
+        tr_mean=tr_mean,
+        link_alive=None if link_alive is None else np.array(link_alive, dtype=bool),
+    )
+    return FabricState(links=[LinkHealth(**dict(l)) for l in links], scheme=scheme,
+                       tr_mean=tr_mean, handle=handle)

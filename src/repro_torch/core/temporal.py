@@ -17,8 +17,9 @@ live ``ProtocolState`` is carried from step to step.  Each step:
 The reference's ``lax.scan`` over steps is a host loop that stacks each
 step's stats.  Timeline sweeps (``SweepRequest(timeline=...)``) pass
 per-point variations: the batch then holds every point's trials, each point
-under its own values.  Checkpointed campaigns (``save_campaign`` and
-``restore_campaign``) arrive with the port of ``checkpoint/store.py``.
+under its own values.  A campaign is checkpointed after a step with
+``save_campaign`` and resumed with ``restore_campaign`` (through
+``checkpoint.store``, in the reference's on-disk layout).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..checkpoint import store
 from .matching import adjacency_bitmask, max_matching
 from .protocol import ProtocolState, cold_state, revalidate_state, run_protocol
 from .reach import reach_matrix, trial_value
@@ -299,3 +301,23 @@ def run_timeline_impl(
 
 #: The reference jit-compiles ``run_timeline_impl``; the port runs it eagerly.
 run_timeline = run_timeline_impl
+
+
+def save_campaign(ckpt_dir, step: int, state: ProtocolState) -> None:
+    """Checkpoint a timeline campaign's carry state after ``step`` steps
+    (``checkpoint/store.py`` is the carrier; atomic, latest-k retained)."""
+    store.save(ckpt_dir, step, state)
+
+
+def restore_campaign(ckpt_dir, n_trials: int, n_ch: int, step: int | None = None,
+                     *, device=None) -> tuple[int, ProtocolState]:
+    """Load ``(step, state)`` onto ``device`` (CUDA unless named) to resume a
+    campaign: continue with ``run_timeline(..., timeline=slice_timeline(tl,
+    step), init_state=state)``.  ``step=None`` takes the latest checkpoint;
+    with none, ``FileNotFoundError``."""
+    target = cold_state(n_trials, n_ch, device)
+    if step is None:
+        step = store.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no campaign checkpoint under {ckpt_dir}")
+    return step, store.restore(ckpt_dir, step, target)

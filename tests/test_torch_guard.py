@@ -36,6 +36,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.protocol, repro_torch.core.temporal\n"
         "import repro_torch.core.sweep, repro_torch.core.prng\n"
         "import repro_torch.fabric, repro_torch.configs.fabric\n"
+        "import repro_torch.checkpoint.store, repro_torch.optics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -63,6 +64,46 @@ def test_default_device_raises_without_cuda(monkeypatch):
         units_from_numpy(*arrays)
     units = api.make_units(WDM8_G200, 0, 2, 2, device="cpu")
     assert all(u.device.type == "cpu" for u in units)
+
+
+def test_runtime_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The interconnect's bring-up, its handle-less re-arbitration and a
+    campaign's restore run on CUDA unless the caller names the CPU."""
+    from repro_torch.core import temporal
+    from repro_torch.optics import interconnect
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interconnect.bringup(2, 1, WDM8_G200, tr_mean=4.6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interconnect.expected_failure_rates(WDM8_G200, 4.6, n=2)
+    fab = interconnect.bringup(2, 1, WDM8_G200, tr_mean=4.6, device="cpu")
+    assert fab.handle.system.laser.device.type == "cpu"
+    legacy = interconnect.FabricState(
+        links=[interconnect.LinkHealth(0, 1, 0, 8, 7, 0, "zero_lock")],
+        scheme="vtrs_ssm", tr_mean=4.6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interconnect.rearbitrate(legacy, WDM8_G200)
+    temporal.save_campaign(tmp_path, 1, fab.handle.state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        temporal.restore_campaign(tmp_path, 2, 8)
+    step, state = temporal.restore_campaign(tmp_path, 2, 8, device="cpu")
+    assert step == 1 and torch.equal(state.lock, fab.handle.state.lock)
+
+
+def test_warm_repair_never_takes_a_plain_version():
+    """Off the CPU, the interconnect's warm repair reaches the kernel
+    wrappers, which launch or raise: there is no fallback."""
+    from repro_torch.core.protocol import cold_state
+    from repro_torch.optics.interconnect import _warm_repair
+
+    build_tables.launches = masked_research.launches = 0
+    sys_ = SystemBatch(*(torch.empty((4, 8), device="meta") for _ in range(4)))
+    state = cold_state(4, 8, "meta")
+    for visible in (None, torch.ones((4, 8), dtype=torch.bool, device="meta")):
+        with pytest.raises(ValueError, match="CUDA"):
+            _warm_repair(WDM8_G200, sys_, 4.6, state, visible)
+    assert build_tables.launches == 0 and masked_research.launches == 0
 
 
 def test_make_units_same_seed_same_units():
