@@ -79,7 +79,13 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             CPU plain path on all 1,008 links); and campaign checkpoints
             (``phase_campaign``: the temporal path's two scenarios split at
             step 4, saved, restored onto the card and resumed, equal to the
-            uninterrupted runs).  Per-trial results on a 20 x 20 subset (per-link
+            uninterrupted runs); and the observability path (``phase_obs``:
+            the flight recorder in ``run_protocol`` at WDM16 and WDM32 and in
+            a hot-swap timeline, each equal to its untraced run, fig19's WDM16
+            ``seq_retry`` failure taxonomy with no ``unknown`` residual,
+            fig22's health matrices, fig14's grid and fig21's bring-up under
+            a phase recorder with their device watermarks, and a manifest of
+            it all rendered by the report).  Per-trial results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -161,6 +167,13 @@ FABRIC_SUBSET = tuple(range(0, 12)) + (100, 101) + tuple(range(-12, 0))
 RUNTIME_POINTS = (("wdm8-g200", 4.6, None), ("wdm16-g200", None, 0.40))
 RUNTIME_DEAD = (100, 1007)
 CAMPAIGN_SPLIT = 4                   # after hot-swap's lane kill (3), before its swap (6)
+OBS_CAP = 128                        # fig19's flight-recorder capacity (trace_cap)
+OBS_TIMELINE_CAP = 64
+#: fig19's WDM16 TR points (of 12, 3.487-11.505 nm) whose seq_retry residuals
+#: phase_obs classifies: the band where most of them lie (points 0 and 1 hold
+#: 0 and 4 residuals at 10,000 trials, 8-11 a tail of 2,060-280); the other
+#: six are left out to keep the phase near 90 s.
+OBS_TAX_POINTS = (2, 3, 4, 5, 6, 7)
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1167,7 +1180,10 @@ def phase_protocol(seed: int) -> dict:
 def phase_temporal(seed: int, side: int, runs: dict | None = None) -> dict:
     """The temporal path: run_timeline warm and cold on two drift scenarios
     at side x side trials, then its checks.  ``runs`` receives each
-    scenario's warm (final state, stats) for ``phase_campaign``."""
+    scenario's warm (final state, stats), under ``("ms", name)`` its ms and
+    under ``("cpu", "wdm16-hotswap")`` the CPU subset's warm run traced at
+    ``OBS_TIMELINE_CAP`` (final state, stats, buffers), for
+    ``phase_campaign`` and ``phase_obs``."""
     import torch
 
     from repro_torch.configs.wdm import drift_timeline
@@ -1201,7 +1217,14 @@ def phase_temporal(seed: int, side: int, runs: dict | None = None) -> dict:
             final, stats = out[name, warm]
             if stats.locked.shape != (tl.n_steps, side * side) or int(stats.locked.max()) > n:
                 fail(f"{name} warm={warm}: stats shape {tuple(stats.locked.shape)}")
-            ref_final, ref_stats = run_timeline(cfg, sub_units, tl_cpu, var, warm=warm)
+            # hot-swap's warm run is traced on the CPU: phase_obs holds the
+            # card's traced timeline against its buffers
+            traced = name == "wdm16-hotswap" and warm
+            ref = run_timeline(cfg, sub_units, tl_cpu, var, warm=warm,
+                               trace=OBS_TIMELINE_CAP if traced else None)
+            ref_final, ref_stats = ref[:2]
+            if traced and runs is not None:
+                runs["cpu", name] = ref
             for f in stats._fields:
                 if not torch.equal(getattr(stats, f).cpu()[:, idx], getattr(ref_stats, f)):
                     fail(f"{name} warm={warm} TemporalStats.{f} differs from the CPU "
@@ -1220,6 +1243,7 @@ def phase_temporal(seed: int, side: int, runs: dict | None = None) -> dict:
                   f"subset equal to the CPU plain path)")
     if runs is not None:
         runs.update({name: out[name, True] for name in DRIFT_CELLS})
+        runs.update({("ms", name): ms[name, True] for name in DRIFT_CELLS})
     return launches
 
 
@@ -1788,14 +1812,15 @@ def _chaos_cells():
             for scheme in FIG22_SCHEMES.get(name, ("vtrs_ssm",))]
 
 
-def phase_chaos(seed: int) -> dict:
+def phase_chaos(seed: int, store: dict | None = None) -> dict:
     """The chaos path: the four fig22 scenarios with the records' schemes,
     warm and cold (6 steps, 48 WDM16 links), ``tiny-flap`` warm and cold,
     and the 1,008-link 3-step timeline of ``fig22_fabric_chaos.py --full``
     warm with vtrs_ssm, with the launch counts set to 0 just before and read
     just after.  Then per-step per-link fields against the CPU plain path
     (all 48 links of mid-linkflap/vtrs_ssm, warm and cold; a link subset of
-    the 1,008 with link 100), and the no-fault parity on the card."""
+    the 1,008 with link 100), and the no-fault parity on the card.  ``store``
+    receives every run's (state, stats) for ``phase_obs``."""
     import torch
 
     from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
@@ -1891,6 +1916,8 @@ def phase_chaos(seed: int) -> dict:
         fail("no-fault parity: quiet steps spent probes or moved locks")
     print(f"[chaos] no-fault parity: {spec.n_links} links x {tl.n_steps} quiet steps, step 0 "
           f"bit-identical to bringup, no probe spent after it")
+    if store is not None:
+        store.update(out)
     return launches
 
 
@@ -2082,6 +2109,294 @@ def phase_campaign(seed: int, full: dict) -> dict:
               f"{s_ms!r} ms, restore_campaign {r_ms!r} ms, tail {t_ms!r} ms ({t_p} probe "
               f"launches); restored state equal to the saved one, head + tail equal to the "
               f"uninterrupted warm run (final state and per-step stats)")
+    return launches
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _rows(tree, idx, dim=0):
+    """The trials ``idx`` along ``dim`` of every tensor of a (named, nested)
+    tuple, on the CPU."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rows(x, idx, dim) for x in tree)) if hasattr(tree, "_fields") \
+            else tuple(_rows(x, idx, dim) for x in tree)
+    return None if tree is None else tree.index_select(dim, idx.to(tree.device)).cpu()
+
+
+def _same(name, got, want):
+    """Every tensor of two (named, nested) tuples equal exactly (float32 bit
+    for bit), None leaves alike."""
+    import torch
+
+    if isinstance(got, tuple):
+        if not isinstance(want, tuple) or len(got) != len(want):
+            fail(f"{name}: structures differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(f"{name}.{got._fields[i] if hasattr(got, '_fields') else i}", g, w)
+        return
+    if got is None or want is None:
+        if got is not want:
+            fail(f"{name}: one side is None")
+        return
+    g, w = got.detach().cpu(), want.detach().cpu()
+    if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w):
+        fail(f"{name} differs ({g.dtype}{tuple(g.shape)} against {w.dtype}{tuple(w.shape)})")
+
+
+def phase_obs(seed: int, temporal: dict, chaos: dict) -> dict:
+    """The observability path at full width, with the launch counts set to 0
+    just before and read just after: the flight recorder in the protocol
+    engine (``run_protocol(trace=128)``, ``protocol_lta``'s settings, 10,000
+    trials at WDM16 TR 3.487, fig19's mid point, and WDM32 TR 8.96) and in a
+    timeline (``run_timeline(trace=64)`` warm on wdm16-hotswap); fig19's
+    WDM16 ``seq_retry`` failure taxonomy (``explain_residuals``, seed 21,
+    JAX's earlier threefry layout, the TR points ``OBS_TAX_POINTS``, depth
+    1, cap 128); the
+    chaos health matrix (``health=True``) on fig22's FABRIC_MID scenarios
+    warm and cold and on the 1,008-link flap timeline; fig14's ``vtrs_ssm``
+    grid and fig21's ``bringup`` under ``PhaseRecorder(measure_memory=True)``.
+    Then: every traced output equal to the trace-off one (``temporal`` and
+    ``chaos`` hold the earlier phases' runs), buffers and codes equal to the
+    CPU plain path on the 20 x 20 subset and the checked links, ``counts``
+    summing to ``n``, no ``unknown`` residual, ``down`` exactly where a link
+    is dead, the recorded grid and bring-up unchanged with their watermarks
+    inside the budget, and a manifest of it all rendered by the report."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
+    from repro_torch.configs.wdm import WDM_CONFIGS, drift_timeline
+    from repro_torch.core import api
+    from repro_torch.core.protocol import run_protocol
+    from repro_torch.core.relation import chain_spec
+    from repro_torch.core.sampling import instantiate
+    from repro_torch.core.search_table import build_search_tables
+    from repro_torch.core.sweep import SweepRequest, sweep
+    from repro_torch.core.temporal import run_timeline
+    from repro_torch.fabric import (FabricTimeline, bringup, make_fabric_units,
+                                    run_fabric_timeline)
+    from repro_torch.obs import PhaseRecorder, TraceBuffer, use_recorder
+    from repro_torch.obs.manifest import RunManifest
+    from repro_torch.obs.report import render_report
+    from repro_torch.obs.taxonomy import explain_residuals
+
+    cfg8, cfg16, cfg32 = (WDM_CONFIGS[k] for k in ("wdm8-g200", "wdm16-g200", "wdm32-g200"))
+    trs16 = tr_sweep(16, cfg16.grid.grid_spacing)
+    engine = []
+    for cfg, tr in ((cfg16, float(trs16[2])), (cfg32, TR)):
+        units = api.make_units(cfg, seed, N_SIDE, N_SIDE)
+        tables = build_search_tables(instantiate(cfg, units), tr, max_alias=cfg.max_fsr_alias)
+        engine.append((f"wdm{cfg.grid.n_ch} TR={tr!r}", cfg, tr, units, tables))
+    hot_cfg, hot_tl = drift_timeline("wdm16-hotswap")
+    hot_units = api.make_units(hot_cfg, seed, N_SIDE, N_SIDE)
+    hot_var = {"tr_mean": TEMPORAL_TR_X * hot_cfg.grid.grid_spacing}
+    tax_units = api.make_units(cfg16, RECORD_SEEDS["fig19"], N_SIDE, N_SIDE,
+                               partitionable=False)
+    tax_trs = trs16[list(OBS_TAX_POINTS)]
+    health_runs = []
+    for name, scheme in _chaos_cells():
+        cfg, spec, tl = chaos_timeline(name)
+        health_runs.append((name, scheme, cfg, spec, tl, make_fabric_units(cfg, spec, seed)))
+    cfg_key, spec1k = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg1k = WDM_CONFIGS[cfg_key]
+    tl1k = fig22_1k_timeline(cfg1k, spec1k)
+    units1k = make_fabric_units(cfg1k, spec1k, seed)
+    req14 = SweepRequest(cfg=cfg8, units=api.make_units(cfg8, seed, N_SIDE, N_SIDE),
+                         scheme="vtrs_ssm",
+                         axes={"sigma_rlv": rlv_sweep()[:6], "tr_mean": tr_sweep()})
+    tr21 = float(fig21_axes(cfg1k)["tr_mean"][0])
+
+    wrappers = reset_launches()
+    out, ms, n_probe = {}, {}, {}
+    for name, cfg, tr, units, tables in engine:
+        out[name], ms[name], n_probe[name] = timed_call(lambda: run_protocol(
+            tables, chain_spec(cfg.s), with_stats=True, with_state=True, trace=OBS_CAP))
+    out["timeline"], ms["timeline"], n_probe["timeline"] = timed_call(
+        lambda: run_timeline(hot_cfg, hot_units, hot_tl, hot_var, trace=OBS_TIMELINE_CAP))
+    out["tax"], ms["tax"], n_probe["tax"] = timed_call(lambda: explain_residuals(
+        cfg16, tax_units, tax_trs, scheme="seq_retry", depth=1, trace_cap=OBS_CAP))
+    for name, scheme, cfg, spec, tl, units in health_runs:
+        for warm in (True, False):
+            key = name, scheme, warm
+            out[key], ms[key], n_probe[key] = timed_call(lambda: run_fabric_timeline(
+                cfg, units, spec, tl, scheme=scheme, warm=warm, health=True))
+    out["1k"], ms["1k"], n_probe["1k"] = timed_call(lambda: run_fabric_timeline(
+        cfg1k, units1k, spec1k, tl1k, scheme="vtrs_ssm", health=True))
+    rec = PhaseRecorder(measure_memory=True)
+    with use_recorder(rec):
+        out["fig14"], ms["fig14"], _ = timed_call(lambda: sweep(req14).data)
+        out["fig21"], ms["fig21"], _ = timed_call(
+            lambda: bringup(cfg1k, spec1k, tr_mean=tr21, scheme="vtrs_ssm", seed=seed))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[obs] launches on the obs path: {launches}")
+    for k in ("probe", "table_build", "match", "feasibility"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was not launched on the obs path")
+    smi = card()
+
+    # The traced engine: outcome unchanged, ring honest, equal to the CPU.
+    for name, cfg, tr, units, tables in engine:
+        t0 = time.perf_counter()
+        spec = chain_spec(cfg.s)
+        *traced, buf = out[name]
+        off, off_ms, _ = timed_call(lambda: run_protocol(tables, spec, with_stats=True,
+                                                         with_state=True))
+        _same(f"engine {name}: trace on against off", tuple(traced), off)
+        if not torch.equal(buf.counts.sum(dim=1, dtype=torch.int32), buf.n):
+            fail(f"engine {name}: counts do not sum to n")
+        sub_units, idx = _subset(units, SUB_SIDE)
+        sub_tables = build_search_tables(instantiate(cfg, sub_units), tr,
+                                         max_alias=cfg.max_fsr_alias)
+        ref = run_protocol(sub_tables, spec, with_stats=True, with_state=True, trace=OBS_CAP)
+        _same(f"engine {name}: the CPU plain path on the subset",
+              _rows(out[name], torch.from_numpy(idx)), ref)
+        n = buf.n.double()
+        print(f"[obs] engine protocol_lta {name} T={N_SIDE * N_SIDE} cap {OBS_CAP}: trace off "
+              f"{off_ms!r} ms/call, trace on {ms[name]!r} ms/call ({ms[name] / off_ms:.3f}x; "
+              f"{n_probe[name]} probe launches) on {smi}; events mean {float(n.mean())!r}, max "
+              f"{int(buf.n.max())}, {int((buf.n > OBS_CAP).sum())} trials overflowed, by kind "
+              f"{buf.counts.sum(dim=0).tolist()} (assignment, stats and state equal to trace "
+              f"off; ev, n and counts equal to the CPU plain path on the {SUB_SIDE}x{SUB_SIDE} "
+              f"subset; {time.perf_counter() - t0:.1f} s of checks)")
+
+    # The traced timeline.
+    t0 = time.perf_counter()
+    final, stats, bufs = out["timeline"]
+    _same("timeline: trace on against off", (final, stats), temporal["wdm16-hotswap"])
+    if not torch.equal(bufs.counts.sum(dim=-1, dtype=torch.int32), bufs.n):
+        fail("timeline: counts do not sum to n")
+    idx_t = torch.from_numpy(_subset(hot_units, SUB_SIDE)[1])
+    _same("timeline: the CPU plain path on the subset",
+          (_rows(final, idx_t), _rows(stats, idx_t, 1), _rows(bufs, idx_t, 1)),
+          temporal["cpu", "wdm16-hotswap"])
+    off_ms = temporal["ms", "wdm16-hotswap"]
+    print(f"[obs] timeline wdm16-hotswap warm T={N_SIDE * N_SIDE} cap {OBS_TIMELINE_CAP}: "
+          f"trace off {off_ms!r} ms/call ([temporal]), trace on {ms['timeline']!r} ms/call "
+          f"({ms['timeline'] / off_ms:.3f}x; {n_probe['timeline']} probe launches) on {smi}; "
+          f"events per step {bufs.n.sum(dim=1).tolist()} (final state and stats equal to "
+          f"trace off, buffers (S, T, cap, 4) equal to the CPU plain path on the subset; "
+          f"{time.perf_counter() - t0:.1f} s of checks)")
+
+    # fig19's WDM16 seq_retry taxonomy.
+    t0 = time.perf_counter()
+    tax = out["tax"]
+    if tax["unknown"] != 0 or tax["residual_total"] != sum(tax["histogram"].values()):
+        fail(f"taxonomy: unknown {tax['unknown']}, histogram {tax['histogram']}")
+    sub_units, idx = _subset(tax_units, SUB_SIDE)
+    ref = explain_residuals(cfg16, sub_units, tax_trs, scheme="seq_retry", depth=1,
+                            trace_cap=OBS_CAP)
+    pos = {int(i): p for p, i in enumerate(idx)}
+    for p_card, p_cpu in zip(tax["points"], ref["points"]):
+        got = {pos[i]: c for i, c in zip(p_card["trial_index"], p_card["codes"]) if i in pos}
+        if got != dict(zip(p_cpu["trial_index"], p_cpu["codes"])):
+            fail(f"taxonomy TR={p_card['tr_mean']}: codes differ from the CPU on the subset")
+    print(f"[obs] taxonomy fig19 wdm16 seq_retry T={N_SIDE * N_SIDE} x TR points "
+          f"{[round(float(v), 4) for v in tax_trs]} (points {list(OBS_TAX_POINTS)} of 12), "
+          f"depth 1, cap {OBS_CAP}: {ms['tax']!r} ms ({n_probe['tax']} probe launches); "
+          f"{tax['residual_total']} residuals {tax['histogram']}, unknown {tax['unknown']}; "
+          f"per point {[p['residual_trials'] for p in tax['points']]} (codes equal to the CPU "
+          f"plain path on the {SUB_SIDE}x{SUB_SIDE} subset; "
+          f"{time.perf_counter() - t0:.1f} s of checks)")
+
+    # The chaos health matrix.
+    for name, scheme, cfg, spec, tl, units in health_runs:
+        for warm in (True, False):
+            t0 = time.perf_counter()
+            key = name, scheme, warm
+            state, cs = out[key]
+            _same(f"health {key}: chaos against health=False",
+                  (state, cs._replace(health=None)), chaos[key])
+            h = cs.health
+            if h.shape != (tl.n_steps, spec.n_links) or h.dtype != torch.int8:
+                fail(f"health {key}: {h.dtype}{tuple(h.shape)}")
+            if not torch.equal(h == 0, ~tl.link_alive):
+                fail(f"health {key}: down differs from link_alive")
+            checked = ""
+            if (name, scheme) == ("mid-linkflap", "vtrs_ssm"):
+                u_cpu = type(units)(*(x.cpu() for x in units))
+                _, ref = run_fabric_timeline(cfg, u_cpu, spec, chaos_timeline(name, "cpu")[2],
+                                             scheme=scheme, warm=warm, health=True)
+                _same(f"health {key}: the CPU plain path", h, ref.health)
+                checked = f", codes of all {spec.n_links} links equal to the CPU plain path"
+            print(f"[obs] health {name} {scheme} {'warm' if warm else 'cold'}: "
+                  f"{ms[key]!r} ms/timeline; per step "
+                  f"{[[int((r == c).sum()) for c in range(5)] for r in h]} links by code "
+                  f"(down, hopeless, degraded, relocking, healthy){checked} "
+                  f"({time.perf_counter() - t0:.1f} s of checks)")
+    t0 = time.perf_counter()
+    state, cs = out["1k"]
+    _same("health 1k: chaos against health=False", (state, cs._replace(health=None)),
+          chaos["1k"])
+    if not torch.equal(cs.health == 0, ~tl1k.link_alive):
+        fail("health 1k: down differs from link_alive")
+    idx = [j % spec1k.n_links for j in FABRIC_SUBSET]
+    _, ref = run_fabric_timeline(cfg1k, _unit_subset(units1k, idx), _subset_spec(spec1k, len(idx)),
+                                 FabricTimeline(*(a[:, idx].cpu() for a in tl1k)),
+                                 scheme="vtrs_ssm", health=True)
+    _same("health 1k: the CPU plain path on the link subset", cs.health[:, idx], ref.health)
+    print(f"[obs] health fabric1k flap timeline vtrs_ssm warm: {ms['1k']!r} ms/timeline; per "
+          f"step {[[int((r == c).sum()) for c in range(5)] for r in cs.health]} links by code "
+          f"(codes of links {idx[:3]}..{idx[-3:]} ({len(idx)}) equal to the CPU plain path; "
+          f"{time.perf_counter() - t0:.1f} s of checks)")
+
+    # The phase recorder around fig14's grid and fig21's bring-up.
+    _same("recorder: fig14 vtrs_ssm grid against no recorder", out["fig14"], sweep(req14).data)
+    bare = bringup(cfg1k, spec1k, tr_mean=tr21, scheme="vtrs_ssm", seed=seed)
+    _same("recorder: fig21 bringup against no recorder",
+          (out["fig21"].ev, out["fig21"].stats, out["fig21"].state),
+          (bare.ev, bare.stats, bare.state))
+    spans = rec.phase_fields()
+    mem = {m["name"]: m for m in rec.memory_fields()}
+    plans = {n["name"]: n for n in rec.notes if n["name"].endswith(".plan")}
+    for label in ("sweep", "bringup"):
+        m = mem.get(f"memory.{label}.temp")
+        if label not in spans or f"{label}.plan" not in plans or m is None \
+                or not 0.0 < m["frac"] < 1.0:
+            fail(f"recorder {label}: span {spans.get(label)}, plan {plans.get(label + '.plan')}, "
+                 f"watermark {m}")
+    print(f"[obs] recorder fig14 vtrs_ssm grid {ms['fig14']!r} ms (span "
+          f"{spans['sweep']['ms']!r} ms; watermark {mem['memory.sweep.temp']['bytes']} bytes, "
+          f"{mem['memory.sweep.temp']['frac']!r} of the budget; plan {plans['sweep.plan']}); "
+          f"fig21 bringup {ms['fig21']!r} ms (span {spans['bringup']['ms']!r} ms; watermark "
+          f"{mem['memory.bringup.temp']['bytes']} bytes, {mem['memory.bringup.temp']['frac']!r} "
+          f"of the budget) on {smi}; both equal to the calls without a recorder")
+
+    # A manifest of it all, rendered.
+    with tempfile.TemporaryDirectory() as d:
+        with RunManifest.create(d, label="chip-smoke-obs", card=smi) as man:
+            for name, *_ in engine:
+                summary = {k: v for k, v in tax.items() if k != "points"} \
+                    if name.startswith("wdm16") else None
+                man.record_trace(out[name][-1], scope=f"protocol_lta {name}", taxonomy=summary)
+            man.record_trace(TraceBuffer(*(x.flatten(0, 1) for x in bufs)),
+                             scope="timeline wdm16-hotswap warm, steps x trials")
+            man.record_phases(rec, scope="fig14 vtrs_ssm + fig21 bringup")
+            for name, scheme, *_ in health_runs:
+                for warm in (True, False):
+                    man.record_health(out[name, scheme, warm][1].health,
+                                      scope=f"{name} {scheme} {'warm' if warm else 'cold'}")
+            man.record_health(out["1k"][1].health, scope="fabric1k flap")
+        report = render_report(man.path)
+    for section in ("trace [protocol_lta wdm16", "taxonomy[seq_retry]", "phases [fig14",
+                    "sweep.temp", "bringup.temp", "health [mid-linkflap vtrs_ssm warm]",
+                    "health [fabric1k flap]"):
+        if section not in report:
+            fail(f"report: no {section!r} section")
+    lines = report.splitlines()
+    print(f"[obs] manifest of {len(lines)} report lines rendered with the trace, phases and "
+          f"health sections; its first lines:")
+    for line in lines[:12]:
+        print(f"[obs]   {line[:160]}")
     return launches
 
 
@@ -2344,28 +2659,27 @@ def main() -> int:
         max_err[k] = max(max_err[k], v)
     print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
     # Each kernel's launches: the sum over the paths.
-    paths, temporal_runs = [], {}
+    paths, temporal_runs, chaos_runs = [], {}, {}
     for name, phase in (("main", phase_main), ("lta", phase_lta), ("protocol", phase_protocol),
                         ("temporal", lambda seed: phase_temporal(seed, N_SIDE, temporal_runs)),
                         ("sweep", phase_sweep), ("fabric", phase_fabric),
-                        ("chaos", phase_chaos), ("interconnect", phase_interconnect),
-                        ("campaign", lambda seed: phase_campaign(seed, temporal_runs))):
+                        ("chaos", lambda seed: phase_chaos(seed, chaos_runs)),
+                        ("interconnect", phase_interconnect),
+                        ("campaign", lambda seed: phase_campaign(seed, temporal_runs)),
+                        ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs))):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
-          f"interconnect and campaign paths: {launches}")
+          f"interconnect, campaign and obs paths: {launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")
     rows = phase_timing(args.seed)
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     kernels = []
     for kname, source, replaces in (
         ("feasibility", "src/repro_torch/kernels/csrc/feasibility.cu",

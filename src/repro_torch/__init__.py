@@ -9,7 +9,9 @@ the ``match`` and ``bottleneck`` kernels of ``kernels.bitmask_match`` and the
 plain PyTorch versions run for CPU tensors.  The protocol engine
 (``core.protocol``) carries the ``protocol_*`` schemes and temporal
 re-arbitration (``core.temporal.run_timeline``); ``fabric`` composes
-per-link arbitration into fabrics of links, with chaos timelines of faults.
+per-link arbitration into fabrics of links, with chaos timelines of faults;
+``obs`` instruments them (flight recorder, health matrix, phase telemetry,
+failure taxonomy, run manifests), off by default.
 """
 
 # The core package first: its sweep exports import the kernel wrappers, and

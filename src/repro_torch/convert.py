@@ -1,10 +1,11 @@
 """Carry the reference package's inputs across as plain numbers.
 
 The parity tests can hand the reference's unit samples (the port also draws
-them itself: ``core.prng``), search tables, protocol states, timelines,
-fabric units, fabric timelines and the interconnect's live fabric states to
-both packages as the same numpy arrays, so that arbiters, warm starts,
-timelines and warm repairs are compared on identical inputs.
+them itself: ``core.prng``), search tables, protocol states, flight-recorder
+buffers, timelines, fabric units, fabric timelines and the interconnect's
+live fabric states to both packages as the same numpy arrays, so that
+arbiters, warm starts, traces, timelines and warm repairs are compared on
+identical inputs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .core.temporal import Timeline
 from .fabric.chaos import FabricTimeline
 from .fabric.sampling import FabricUnits
 from .fabric.spec import FabricSpec
+from .obs.trace import TraceBuffer
 from .optics.interconnect import FabricHandle, FabricState, LinkHealth
 
 
@@ -65,6 +67,14 @@ def state_from_numpy(lock, entry, cursor, probes, device=None) -> ProtocolState:
     return ProtocolState(*(
         torch.tensor(np.asarray(a, dtype=np.int32)).to(dev)
         for a in (lock, entry, cursor, probes)
+    ))
+
+
+def trace_from_numpy(ev, n, counts, device=None) -> TraceBuffer:
+    """``TraceBuffer`` from the reference's (ev, n, counts) arrays (int32)."""
+    dev = resolve_device(device)
+    return TraceBuffer(*(
+        torch.tensor(np.asarray(a, dtype=np.int32)).to(dev) for a in (ev, n, counts)
     ))
 
 

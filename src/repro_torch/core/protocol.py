@@ -38,8 +38,11 @@ Two rules keep the port equal to the reference:
   of the peak counts, and every first-True choice is ``first_true`` (0 when
   none), never an argmax of a bool tensor.
 
-The reference's ``trace=`` flight recorder arrives with the observability
-slice of the port; passing it raises ``NotImplementedError``.
+``trace=cap`` threads the flight recorder (``repro_torch.obs.trace``)
+through the rounds: each phase appends its events to a ``TraceBuffer`` in
+place, in the reference's order, and the buffer is cloned once a round so
+that halted trials can drop the round's events.  With ``trace=None`` no
+recorder code runs.
 """
 from __future__ import annotations
 
@@ -48,6 +51,19 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.probe import masked_research
+from ..obs.trace import (
+    EV_DISPLACE,
+    EV_HALT,
+    EV_LOCK,
+    EV_PROBE,
+    EV_RELEASE,
+    EV_SURRENDER,
+    TraceBuffer,
+    clone_trace,
+    merge_traces,
+    trace_append,
+    trace_buffer,
+)
 from .relation import ChainSpec
 from .sampling import resolve_device
 from .search_table import SearchTables, first_true
@@ -160,9 +176,10 @@ def _clone(state: ProtocolState) -> ProtocolState:
     return ProtocolState(*(x.clone() for x in state))
 
 
-def _probe_phase(tables: SearchTables, order: torch.Tensor,
-                 state: ProtocolState) -> ProtocolState:
-    """One lock sweep: starved rings relock red-ward of their cursor."""
+def _probe_phase(tables: SearchTables, order: torch.Tensor, state: ProtocolState,
+                 trace: TraceBuffer | None = None, rnd: int = 0) -> ProtocolState:
+    """One lock sweep: starved rings relock red-ward of their cursor.  With
+    ``trace``, each rank appends its ``probe`` and ``lock`` events to it."""
     t, n, e = tables.wl.shape
     rows = torch.arange(t, device=tables.wl.device)
     lock, entry, cursor, probes = _clone(state)
@@ -183,11 +200,15 @@ def _probe_phase(tables: SearchTables, order: torch.Tensor,
         entry[rows, ring] = torch.where(do, first, entry[rows, ring])
         cursor[rows, ring] = torch.where(do, first, cur)
         probes += searching.to(torch.int32)
+        if trace is not None:
+            trace_append(trace, searching, rnd, ring, EV_PROBE, cur)
+            trace_append(trace, do, rnd, ring, EV_LOCK, first)
     return ProtocolState(lock, entry, cursor, probes)
 
 
 def _augment_phase(tables: SearchTables, state: ProtocolState, depth: int,
-                   n_seekers: int, k_donors: int) -> ProtocolState:
+                   n_seekers: int, k_donors: int, trace: TraceBuffer | None = None,
+                   rnd: int = 0) -> ProtocolState:
     """Displacement chains for starved rings, up to ``depth`` hops each.
 
     Hop resolution (first match wins, all red-ward of the seeker's cursor):
@@ -195,7 +216,9 @@ def _augment_phase(tables: SearchTables, state: ProtocolState, depth: int,
     that can relock red-ward (two coordinated moves, chain closed);
     otherwise the nearest donor surrenders its line and seeks next, its
     cursor advanced past the surrendered entry.  ``n_seekers`` chains run per
-    phase, each from the lowest-indexed not-yet-tried starved ring.
+    phase, each from the lowest-indexed not-yet-tried starved ring.  With
+    ``trace``, each hop appends its ``probe``, ``lock``, ``displace`` and
+    ``surrender`` events after its state writes.
     """
     t, n, e = tables.wl.shape
     dev = tables.wl.device
@@ -269,6 +292,11 @@ def _augment_phase(tables: SearchTables, state: ProtocolState, depth: int,
         n_inter = valid_k.sum(dim=1, dtype=torch.int32)
         scanned = torch.where(do_free, 0, torch.where(do_swap, k_swap + 1, n_inter))
         probes.add_(torch.where(active, 1 + scanned, 0).to(torch.int32))
+        if trace is not None:
+            trace_append(trace, active, rnd, s, EV_PROBE, floor_s)
+            trace_append(trace, take, rnd, s, EV_LOCK, e_s)
+            trace_append(trace, do_swap, rnd, x_sel, EV_DISPLACE, a_sel)
+            trace_append(trace, do_yield, rnd, x_sel, EV_SURRENDER, x_entry)
         return torch.where(do_yield, x_sel, s), do_yield
 
     tried = torch.zeros((t, n), dtype=torch.bool, device=dev)
@@ -284,9 +312,17 @@ def _augment_phase(tables: SearchTables, state: ProtocolState, depth: int,
     return ProtocolState(lock, entry, cursor, probes)
 
 
-def _release_phase(state: ProtocolState) -> ProtocolState:
-    """Starved rings restart their tuner sweep (cursor back to entry 0)."""
-    return state._replace(cursor=torch.where(state.lock < 0, 0, state.cursor))
+def _release_phase(state: ProtocolState, trace: TraceBuffer | None = None,
+                   rnd: int = 0) -> ProtocolState:
+    """Starved rings restart their tuner sweep (cursor back to entry 0).
+    With ``trace``, every cursor that rewinds appends one ``release`` event
+    (entry = the old cursor), ring by ring as the reference's loop does."""
+    starved = state.lock < 0
+    if trace is not None:
+        reset = starved & (state.cursor != 0)
+        for i in range(state.lock.shape[1]):
+            trace_append(trace, reset[:, i], rnd, i, EV_RELEASE, state.cursor[:, i])
+    return state._replace(cursor=torch.where(starved, 0, state.cursor))
 
 
 def _finalize(tables: SearchTables, state: ProtocolState) -> Assignment:
@@ -355,10 +391,19 @@ def run_protocol(
                cursor); probes stay spent.
     patience:  halt a trial after this many consecutive rounds without a
                locked-count increase (None: halt only on exact fixed points).
-    trace:     the flight recorder; not ported yet (raises).
+    trace:     flight-recorder ring capacity (events per trial).  None
+               disables it; an int appends a ``repro_torch.obs.trace.
+               TraceBuffer`` to the return tuple, recording every probe /
+               lock / displace / surrender / release transaction and a
+               trial-level ``halt`` event.  Halted trials record nothing
+               further (the recorder follows restore-and-refund);
+               transactional rollbacks keep their events (the transactions
+               ran, only the commit was refused).  Tracing changes no
+               outcome.
 
     Returns ``assign`` and, per the flags, ``(assign, stats)``,
-    ``(assign, state)`` or ``(assign, stats, state)``.  A trial whose round
+    ``(assign, state)`` or ``(assign, stats, state)``, with the
+    ``TraceBuffer`` appended last when ``trace`` is set.  A trial whose round
     changed nothing is sticky-halted; halted trials are frozen (later rounds
     restore their state and refund their probes), so a trial's accounting
     does not depend on the other trials of the batch.  ``stats.probes``
@@ -366,10 +411,6 @@ def run_protocol(
     resumed complete and the bound for one that never completed;
     ``stats.worked`` counts the rounds a trial really executed.
     """
-    if trace is not None:
-        raise NotImplementedError(
-            "run_protocol(trace=...): the flight recorder is not ported yet; "
-            "it arrives with the observability slice of the port")
     t, n, _ = tables.wl.shape
     dev = tables.wl.device
     dep = n if depth is None else int(depth)
@@ -386,6 +427,7 @@ def run_protocol(
     plateau = torch.zeros((t,), dtype=torch.int32, device=dev)
     halt_round = torch.full((t,), -1, dtype=torch.int32, device=dev)
     state = state0
+    buf = None if trace is None else trace_buffer(t, int(trace), dev)
     rnd = 0
     while rnd < rounds:
         # A trial is live while a starved ring with a nonempty table could
@@ -394,10 +436,12 @@ def run_protocol(
         if not bool((live & ~halted).any()):
             break
         prev = state
-        state = _probe_phase(tables, order_idx, state)
+        if buf is not None:
+            prev_buf = clone_trace(buf)
+        state = _probe_phase(tables, order_idx, state, buf, rnd)
         if dep > 0:
-            state = _augment_phase(tables, state, dep, n_seekers, k_donors)
-        state = _release_phase(state)
+            state = _augment_phase(tables, state, dep, n_seekers, k_donors, buf, rnd)
+        state = _release_phase(state, buf, rnd)
         changed = ((state.lock != prev.lock).any(dim=1)
                    | (state.entry != prev.entry).any(dim=1)
                    | (state.cursor != prev.cursor).any(dim=1))
@@ -408,6 +452,9 @@ def run_protocol(
             cursor=torch.where(h, prev.cursor, state.cursor),
             probes=torch.where(halted, prev.probes, state.probes),
         )
+        if buf is not None:
+            # A frozen trial's events of this round go with its state changes.
+            buf = merge_traces(halted, prev_buf, buf)
         was_halted = halted
         halted = halted | (live & ~changed)
         if patience is not None:
@@ -418,21 +465,27 @@ def run_protocol(
                                  rnd + 1, halt_round)
         complete = (state.lock >= 0).all(dim=1)
         done_round = torch.where(complete & (done_round < 0), rnd + 1, done_round)
+        if buf is not None:
+            trace_append(buf, halted & ~was_halted, rnd + 1, -1, EV_HALT, -1)
         rnd += 1
     if transactional:
         state, commit = _commit(state, state0)
         done_round = torch.where(commit, done_round, done0)
     assign = _finalize(tables, state)
-    if not with_stats:
-        return (assign, state) if with_state else assign
-    stats = ProtocolStats(
-        probes=state.probes,
-        rounds=torch.where(done_round < 0, rounds, done_round).to(torch.int32),
-        locked=_n_locked(state.lock),
-        worked=torch.where(done_round >= 0, done_round,
-                           torch.where(halt_round >= 0, halt_round, rounds)).to(torch.int32),
-    )
-    return (assign, stats, state) if with_state else (assign, stats)
+    out = (assign,)
+    if with_stats:
+        out += (ProtocolStats(
+            probes=state.probes,
+            rounds=torch.where(done_round < 0, rounds, done_round).to(torch.int32),
+            locked=_n_locked(state.lock),
+            worked=torch.where(done_round >= 0, done_round,
+                               torch.where(halt_round >= 0, halt_round, rounds)).to(torch.int32),
+        ),)
+    if with_state:
+        out += (state,)
+    if buf is not None:
+        out += (buf,)
+    return out if len(out) > 1 else assign
 
 
 def run_protocol_trace(

@@ -45,8 +45,11 @@ plain versions.  Fabric sweeps (``fabric=``, ``repro_torch.fabric``) give
 each grid point its own copy of the fabric's links, so a chunk of points is
 one batch of links, and each link chunk one batch of 2 trials a link.
 ``mesh=`` (multi-device sweeps) is not ported yet and raises
-``NotImplementedError``; the reference's phase telemetry (its recorder's
-chunk-plan notes and measured calls) arrives with the observability slice.
+``NotImplementedError``.  Under an installed ``repro_torch.obs.phase``
+recorder a sweep notes its chunk plan (``sweep.plan``, and
+``chunked_map.sweep_points``) and runs its points through
+``measured_call`` (an ``execute`` span, and the device watermark under
+``measure_memory``).
 
 ``sweep_reference`` is the per-point loop over the single-point entry
 points: the engine's oracle, consuming the same validated ``SweepRequest``.
@@ -73,6 +76,7 @@ from .sampling import UnitSamples
 from .search_table import max_entries_for
 from .temporal import TemporalStats, Timeline, run_timeline_impl
 from .variations import Variations, _maybe_validate, axis_names, axis_spec
+from ..obs.phase import current_recorder, measured_call, note
 
 #: Per-chunk device-memory budget for automatic chunk sizing [bytes]: 4 GiB,
 #: 5 % of an 80 GB card.
@@ -99,7 +103,7 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def chunked_map(fn: Callable, xs, *, chunk: int):
+def chunked_map(fn: Callable, xs, *, chunk: int, tag: str | None = None):
     """Run ``fn`` on chunks of ``chunk`` items of ``xs`` and concatenate the
     results along their leading axis.
 
@@ -107,10 +111,18 @@ def chunked_map(fn: Callable, xs, *, chunk: int):
     the leading axis (the fabric layer's ``FabricUnits``), each chunk sliced
     alike; the results are tensors or (named) tuples of tensors, each with
     the chunk's leading axis, None leaves staying None.  Peak memory is one
-    chunk's; the last chunk is simply smaller."""
+    chunk's; the last chunk is simply smaller (nothing is padded).
+
+    ``tag`` names the plan note ``chunked_map.<tag>`` (items, chunk,
+    n_chunks) for an installed phase recorder.  The port runs eagerly, so
+    the note is made once per call (the reference's, once per compilation).
+    """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     size = _leaves(xs)[0].shape[0]
+    if tag is not None:
+        note(f"chunked_map.{tag}", items=int(size), chunk=int(chunk),
+             n_chunks=-(-int(size) // int(chunk)))
     outs = [fn(_tree_map(lambda a: a[start:start + chunk], xs))
             for start in range(0, size, chunk)]
     return _tree_map(lambda *parts: torch.cat(parts), *outs)
@@ -488,11 +500,26 @@ def sweep(request: SweepRequest) -> SweepResult:
             cfg, units, request.fabric, fixed, request.timeline, pts, names=names,
             scheme=scheme, link_chunk=link_chunk)
     else:
+        link_chunk = 0
         chunk = request.chunk_size or _auto_chunk(cfg, units, points.shape[0], scheme)
         evaluate = lambda pts: _eval_chunk(  # noqa: E731
             cfg, units, fixed, request.timeline, pts, names=names, metric=metric,
             policy=policy, scheme=scheme)
-    out = chunked_map(evaluate, points, chunk=chunk)
+    rec = current_recorder()
+    if rec is not None:
+        if request.fabric is None:
+            trials = units.u_rlv.shape[0] * units.u_go.shape[0]
+            per_point = (scheme_point_bytes(cfg, trials) if scheme is not None
+                         else policy_point_bytes(cfg, trials))
+        rec.note(
+            "sweep.plan", points=int(points.shape[0]), chunk=int(chunk),
+            n_chunks=-(-int(points.shape[0]) // int(chunk)),
+            link_chunk=int(link_chunk), per_point_bytes=int(per_point),
+            budget=_CHUNK_BUDGET, metric=metric,
+            target=scheme if scheme is not None else policy,
+        )
+    out = measured_call("sweep", chunked_map, (evaluate, points),
+                        {"chunk": chunk, "tag": "sweep_points"}, budget=_CHUNK_BUDGET)
     if tr_idx is not None:
         afp = _afp_from_trial_min_tr(out.reshape(shape + out.shape[1:]),
                                      request.axes["tr_mean"])

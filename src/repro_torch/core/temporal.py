@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import store
+from ..obs.trace import TraceBuffer, merge_traces, trace_buffer
 from .matching import adjacency_bitmask, max_matching
 from .protocol import ProtocolState, cold_state, revalidate_state, run_protocol
 from .reach import reach_matrix, trial_value
@@ -178,35 +179,42 @@ def _where_trials(mask: torch.Tensor, a: ProtocolState, b: ProtocolState) -> Pro
 
 def protocol_relock(tables, spec, start: ProtocolState, *, warm: bool,
                     transactional: bool = True, patience: int | None = 4,
-                    kw: dict | None = None):
+                    kw: dict | None = None, trace: int | None = None):
     """One re-lock pass of the protocol engine from ``start``.
 
     Returns ``(new_state, probes, rounds)``.  With ``warm=True`` the pass
     includes the cold escalation: trials the warm pass left unresolved (a
     starved ring with peaks remains, and the warm start held some lock) rerun
     from scratch and pay both passes' probes and rounds; the cold result is
-    taken where it locked more rings.
+    taken where it locked more rings.  With ``trace`` (a flight-recorder
+    capacity, see ``run_protocol``) both passes are traced and the merged
+    ``TraceBuffer`` is appended: a trial that takes the cold result carries
+    the cold pass's trace.
     """
     t, n = start.lock.shape
     kw = kw or {}
-    _, stats, new = run_protocol(
+    out = run_protocol(
         tables, spec, with_stats=True, with_state=True, init_state=start,
-        transactional=transactional, patience=patience, **kw,
+        transactional=transactional, patience=patience, trace=trace, **kw,
     )
+    _, stats, new = out[:3]
     probes, rounds = stats.probes, stats.worked
     if warm:
         unresolved = (((new.lock < 0) & (tables.n_valid > 0)).any(dim=1)
                       & (start.lock >= 0).any(dim=1))
-        _, cstats, cnew = run_protocol(
+        cout = run_protocol(
             tables, spec, with_stats=True, with_state=True,
             init_state=cold_state(t, n, start.lock.device),
-            transactional=transactional, patience=patience, **kw,
+            transactional=transactional, patience=patience, trace=trace, **kw,
         )
+        _, cstats, cnew = cout[:3]
         use_cold = unresolved & (cstats.locked > stats.locked)
         new = _where_trials(use_cold, cnew, new)
         probes = probes + torch.where(unresolved, cstats.probes, 0)
         rounds = rounds + torch.where(unresolved, cstats.worked, 0)
-    return new, probes, rounds
+        if trace is not None:
+            return new, probes, rounds, merge_traces(use_cold, cout[3], out[3])
+    return (new, probes, rounds) + out[3:]
 
 
 def run_timeline_impl(
@@ -232,31 +240,36 @@ def run_timeline_impl(
     ``(final_state, TemporalStats)``; the state resumes a later call through
     ``init_state`` with ``slice_timeline``.  Per-point variations (1-D
     tensors, see ``sampling.instantiate``) run every point's trials in one
-    batch, point-major.  ``trace`` (the flight recorder) is not ported yet
-    and raises.
+    batch, point-major.
+
+    ``trace``: flight-recorder ring capacity per step (see ``run_protocol``);
+    the return gains a third element, a ``TraceBuffer`` with a leading (S,)
+    step axis ((S, T, cap, 4) events).  Only protocol schemes record
+    (one-shot arbiters run no engine).
     """
     from .api import scheme_spec  # local: api imports this module's deps
 
-    if trace is not None:
-        raise NotImplementedError(
-            "run_timeline(trace=...): the flight recorder is not ported yet; "
-            "it arrives with the observability slice of the port")
-    over = as_variations(variations)
-    sys = instantiate(cfg, units, over)
-    spec = chain_spec(cfg.s)
-    t, n = sys.laser.shape
-    dev = sys.laser.device
-    tr = per_trial(over.resolve("tr_mean", cfg), point_count(over), t, dev)
     kw = _protocol_kwargs(scheme)
     if kw is None and warm:
         raise ValueError(
             f"scheme {scheme!r} is one-shot: it carries no protocol state, "
             "so only cold (warm=False) re-arbitration is defined"
         )
+    if kw is None and trace is not None:
+        raise ValueError(
+            f"scheme {scheme!r} is one-shot: it never runs the protocol "
+            "engine, so there is no flight recorder to enable (trace=None)"
+        )
+    over = as_variations(variations)
+    sys = instantiate(cfg, units, over)
+    spec = chain_spec(cfg.s)
+    t, n = sys.laser.shape
+    dev = sys.laser.device
+    tr = per_trial(over.resolve("tr_mean", cfg), point_count(over), t, dev)
     arbiter = scheme_spec(scheme).arbiter
     state = cold_state(t, n, dev) if init_state is None else init_state
     zeros = torch.zeros((t,), dtype=torch.int32, device=dev)
-    steps = []
+    steps, bufs = [], []
     for s_idx in range(timeline.n_steps):
         ring_drift, laser_drift, lane_alive, ring_alive = (a[s_idx] for a in timeline)
         sys_s = apply_axis_transforms(
@@ -277,9 +290,10 @@ def run_timeline_impl(
             probes, rounds = zeros, zeros
         else:
             start = (reval if warm else cold_state(t, n, dev))._replace(probes=zeros)
-            new, probes, rounds = protocol_relock(
+            new, probes, rounds, *buf = protocol_relock(
                 tables, spec, start, warm=warm, transactional=transactional,
-                patience=patience, kw=kw)
+                patience=patience, kw=kw, trace=trace)
+            bufs += buf
         churn = (kept & (new.lock != prev_lock)).sum(dim=1, dtype=torch.int32)
         # Feasibility of the live bus: every live ring matchable to a
         # distinct live line within TR (dead rings exempt, dead lanes gone).
@@ -294,9 +308,15 @@ def run_timeline_impl(
         state = new
     if not steps:
         empty = torch.zeros((0, t), dtype=torch.int32, device=dev)
-        return state, TemporalStats(empty, empty, empty, empty, empty,
-                                    empty.to(torch.bool))
-    return state, TemporalStats(*(torch.stack(f) for f in zip(*steps)))
+        out = state, TemporalStats(empty, empty, empty, empty, empty,
+                                   empty.to(torch.bool))
+        if trace is None:
+            return out
+        return out + (TraceBuffer(*(x[None][:0] for x in trace_buffer(t, trace, dev))),)
+    out = state, TemporalStats(*(torch.stack(f) for f in zip(*steps)))
+    if trace is None:
+        return out
+    return out + (TraceBuffer(*(torch.stack(f) for f in zip(*bufs))),)
 
 
 #: The reference jit-compiles ``run_timeline_impl``; the port runs it eagerly.

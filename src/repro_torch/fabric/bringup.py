@@ -47,6 +47,7 @@ from ..core.sampling import SystemBatch, per_trial
 from ..core.ssm import Assignment
 from ..core.sweep import _CHUNK_BUDGET, chunked_map, scheme_point_bytes
 from ..core.variations import Variations, as_variations, is_per_point
+from ..obs.phase import current_recorder, measured_call
 from .sampling import FabricUnits, instantiate_links, make_fabric_units
 from .spec import FabricSpec
 
@@ -279,9 +280,9 @@ def _per_link_names(variations: Variations) -> tuple:
 
 
 def _map_links(cfg, spec, scheme, variations: Variations, units: FabricUnits,
-               link_chunk: int) -> LinkEval:
+               link_chunk: int, tag: str = "fabric_links") -> LinkEval:
     """``_eval_links`` over ``link_chunk`` links a batch, the per-link
-    overrides sliced with their links."""
+    overrides sliced with their links (``tag`` names the chunk-plan note)."""
     names = _per_link_names(variations)
 
     def run(item):
@@ -289,7 +290,7 @@ def _map_links(cfg, spec, scheme, variations: Variations, units: FabricUnits,
         return _eval_links(cfg, spec, scheme, variations.replace(**dict(zip(names, values))), u)
 
     values = tuple(torch.as_tensor(variations.get(name)) for name in names)
-    return chunked_map(run, (units, values), chunk=link_chunk)
+    return chunked_map(run, (units, values), chunk=link_chunk, tag=tag)
 
 
 def fabric_stats_impl(
@@ -386,8 +387,10 @@ def bringup(
     """Arbitrate a whole fabric: every link's two ends in batches of
     ``link_chunk`` links (default: the largest that fits the sweep engine's
     memory budget).  Units are drawn by ``make_fabric_units`` on ``device``
-    (CUDA unless named).  ``mesh`` (multi-device bring-up) is not ported yet
-    and raises ``NotImplementedError``.
+    (CUDA unless named).  Under an installed ``repro_torch.obs.phase``
+    recorder the link plan is noted (``bringup.plan``) and the links run
+    through ``measured_call``.  ``mesh`` (multi-device bring-up) is not
+    ported yet and raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -398,7 +401,17 @@ def bringup(
         var = var.replace(tr_mean=tr_mean)
     units = make_fabric_units(cfg, spec, seed, device, partitionable=partitionable)
     chunk = link_chunk or auto_link_chunk(cfg, spec.n_links)
-    ev = _map_links(cfg, spec, scheme, var, units, chunk)
+    rec = current_recorder()
+    if rec is not None:
+        rec.note(
+            "bringup.plan", links=int(spec.n_links), link_chunk=int(chunk),
+            n_chunks=-(-int(spec.n_links) // int(chunk)), scheme=scheme,
+            per_chunk_bytes=int(scheme_point_bytes(cfg, 2 * chunk)),
+            budget=_CHUNK_BUDGET,
+        )
+    ev = measured_call("bringup", _map_links,
+                       (cfg, spec, scheme, var, units, chunk, "bringup_links"), {},
+                       budget=_CHUNK_BUDGET)
     stats = aggregate_stats(cfg, spec, ev)
     k, n = spec.n_links, cfg.grid.n_ch
     system = instantiate_links(cfg, spec, units, var)

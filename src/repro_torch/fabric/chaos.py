@@ -57,6 +57,7 @@ from ..core.search_table import build_search_tables
 from ..core.sweep import chunked_map
 from ..core.temporal import _protocol_kwargs, _ramp, _where_trials, protocol_relock
 from ..core.variations import Variations, apply_axis_transforms, as_variations, is_per_point
+from ..obs.health import health_codes
 from .bringup import (
     FabricStats,
     LinkEval,
@@ -279,8 +280,7 @@ class FabricChaosStats(NamedTuple):
     broken: torch.Tensor    # (S, K) int32 locks broken at revalidation
     churn: torch.Tensor     # (S, K) int32 surviving locks that moved anyway
     feasible: torch.Tensor  # (S, K) bool
-    #: the reference's (S, K) health codes (``health=True``); not ported yet,
-    #: always None here.
+    #: (S, K) int8 ``repro_torch.obs.health`` codes, only with ``health=True``
     health: Any = None
 
 
@@ -502,19 +502,17 @@ def run_fabric_timeline_impl(
     ``(final_state, FabricChaosStats)`` with the state in the (2K, N)
     layout (row 2k = link k's tx end).
 
-    ``mesh`` (multi-device chaos) and ``health=True`` (the health matrix of
-    the observability layer) are not ported yet and raise
+    ``health=True`` also fills ``FabricChaosStats.health``, the (S, K) int8
+    post-mortem matrix of ``repro_torch.obs.health`` codes (down / hopeless
+    / degraded / relocking / healthy), folded from the per-step per-link
+    stats above, so it never changes the arbitration outcome.  ``mesh``
+    (multi-device chaos) is not ported yet and raises
     ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "run_fabric_timeline(mesh=...): multi-device chaos is not ported yet; "
             "it arrives with the sweep engine's mesh= (ROADMAP queue 1)")
-    if health:
-        raise NotImplementedError(
-            "run_fabric_timeline(health=True): the chaos health matrix is not "
-            "ported yet; it arrives with the observability slice of the port "
-            "(ROADMAP queue 1, item 7)")
     var = as_variations(variations)
     k, n = spec.n_links, cfg.grid.n_ch
     if timeline.n_links != k or timeline.n_ch != n:
@@ -522,9 +520,14 @@ def run_fabric_timeline_impl(
             f"timeline is ({timeline.n_links} links, {timeline.n_ch} ch) "
             f"but the fabric needs ({k}, {n})"
         )
-    return _run_chaos(cfg, units, spec, timeline, var, n_points=None, scheme=scheme,
-                      warm=warm, transactional=transactional, patience=patience,
-                      hysteresis=hysteresis, link_chunk=link_chunk or auto_link_chunk(cfg, k))
+    state, chaos = _run_chaos(
+        cfg, units, spec, timeline, var, n_points=None, scheme=scheme, warm=warm,
+        transactional=transactional, patience=patience, hysteresis=hysteresis,
+        link_chunk=link_chunk or auto_link_chunk(cfg, k))
+    if health:
+        chaos = chaos._replace(health=health_codes(
+            chaos.locked, chaos.probes, chaos.feasible, timeline.link_alive, n))
+    return state, chaos
 
 
 #: The reference jit-compiles ``run_fabric_timeline_impl``; the port runs it

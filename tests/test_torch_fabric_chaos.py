@@ -208,8 +208,8 @@ def test_mesh_health_and_mismatch_raise():
     tl = tfab.make_fabric_timeline(SPEC, 2, N, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         tfab.run_fabric_timeline(CFG, units, SPEC, tl, mesh=object())
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        tfab.run_fabric_timeline(CFG, units, SPEC, tl, health=True)
+    _, cs = tfab.run_fabric_timeline(CFG, units, SPEC, tl, health=True)
+    assert cs.health.shape == (2, SPEC.n_links) and cs.health.dtype == torch.int8
     with pytest.raises(ValueError, match="channels|needs"):
         tfab.run_fabric_timeline(CFG, units, SPEC,
                                  tfab.make_fabric_timeline(SPEC, 2, N + 2, device="cpu"))

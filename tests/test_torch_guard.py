@@ -37,6 +37,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.sweep, repro_torch.core.prng\n"
         "import repro_torch.fabric, repro_torch.configs.fabric\n"
         "import repro_torch.checkpoint.store, repro_torch.optics\n"
+        "import repro_torch.obs, repro_torch.obs.taxonomy, repro_torch.obs.manifest\n"
+        "import repro_torch.obs.report, repro_torch.obs.smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -183,6 +185,8 @@ def test_later_slice_schemes_raise_with_their_slice(name, policy, params):
 
 
 def test_protocol_trace_waits_for_the_observability_slice():
+    """The observability slice has landed: ``trace=`` appends an empty
+    recorder on its tables' device where no ring has a peak to search."""
     from repro_torch.core.protocol import run_protocol
     from repro_torch.core.relation import chain_spec
     from repro_torch.core.search_table import SearchTables
@@ -190,8 +194,10 @@ def test_protocol_trace_waits_for_the_observability_slice():
     tables = SearchTables(delta=torch.zeros((1, 2, 6)),
                           wl=torch.full((1, 2, 6), -1, dtype=torch.int32),
                           n_valid=torch.zeros((1, 2), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        run_protocol(tables, chain_spec(np.arange(2)), trace=32)
+    assign, buf = run_protocol(tables, chain_spec(np.arange(2)), trace=32)
+    assert assign.wl.tolist() == [[-1, -1]]
+    assert buf.ev.shape == (1, 32, 4) and buf.ev.device.type == "cpu"
+    assert int(buf.n.sum()) == 0 and int(buf.counts.sum()) == 0
 
 
 def test_unknown_scheme_and_lta_policy():

@@ -134,8 +134,8 @@ def test_run_timeline_hysteresis_and_one_shot_scheme():
                jtemp.run_timeline(jcfg, ju, jtl, var, scheme="seq_retry", warm=False))
     with pytest.raises(ValueError, match="one-shot"):
         ttemp.run_timeline(tcfg, tu, ttl, var, scheme="seq_retry", warm=True)
-    with pytest.raises(NotImplementedError, match="observability"):
-        ttemp.run_timeline(tcfg, tu, ttl, var, trace=8)
+    with pytest.raises(ValueError, match="one-shot"):
+        ttemp.run_timeline(tcfg, tu, ttl, var, scheme="seq_retry", warm=False, trace=8)
 
 
 @pytest.mark.parametrize("split", [1, 2, 3])
