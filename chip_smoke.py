@@ -85,7 +85,16 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             ``seq_retry`` failure taxonomy with no ``unknown`` residual,
             fig22's health matrices, fig14's grid and fig21's bring-up under
             a phase recorder with their device watermarks, and a manifest of
-            it all rendered by the report).  Per-trial results on a 20 x 20 subset (per-link
+            it all rendered by the report); and the multi-device paths
+            (``phase_mesh``: fig14's seq, fig5's WDM32 min_tr("lta") and
+            fig19's protocol_lta grids through ``sweep(mesh=)``, FABRIC_1K
+            ``bringup(mesh=)`` and a FABRIC_MID ``run_fabric_timeline(mesh=,
+            health=True)`` on ``make_sweep_mesh()`` and on 2- and 3-way
+            placeholder meshes over cuda:0, each bit for bit against the
+            unsharded run; ``restore(shardings=)`` of a CPU-saved campaign
+            checkpoint onto the card; the reference's public surface imported
+            from the port, and a deprecated ``sigma_rlv=`` call).  Per-trial
+            results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -174,6 +183,33 @@ OBS_TIMELINE_CAP = 64
 #: 0 and 4 residuals at 10,000 trials, 8-11 a tail of 2,060-280); the other
 #: six are left out to keep the phase near 90 s.
 OBS_TAX_POINTS = (2, 3, 4, 5, 6, 7)
+#: The reference's public surface that ``phase_mesh`` imports from the port:
+#: the 62 re-exports of ``repro.core`` and ``repro.fabric.__all__``
+#: (``tests/test_torch_surface.py`` holds these lists to the reference's).
+SURFACE_CORE = (
+    "POLICIES", "ArbitrationConfig", "DWDMGrid", "VariationModel", "natural_order",
+    "permuted_order", "wdm_config", "AxisSpec", "Variations", "axis_names", "axis_spec",
+    "register_axis", "SystemBatch", "UnitSamples", "draw_unit_samples", "instantiate",
+    "sample_systems", "reach_matrix", "scaled_residual", "tuning_residual", "SCHEME_POLICY",
+    "SCHEMES", "EvalResult", "SchemeSpec", "evaluate_policy", "evaluate_scheme",
+    "make_protocol", "make_seq_retry", "make_units", "oblivious_arbitrate", "policy_min_tr",
+    "register_scheme", "register_scheme_family", "registered_schemes", "scheme_spec", "shmoo",
+    "ProtocolState", "ProtocolStats", "cold_state", "masked_first_entry", "revalidate_state",
+    "run_protocol", "run_protocol_trace", "TemporalStats", "Timeline", "make_timeline",
+    "restore_campaign", "run_timeline", "save_campaign", "slice_timeline", "SweepRequest",
+    "SweepResult", "sweep", "sweep_grid", "sweep_grid_reference", "sweep_min_tr",
+    "sweep_policy", "sweep_reference", "sweep_scheme", "Outcome", "classify", "Assignment",
+)
+SURFACE_FABRIC = (
+    "FabricChaosStats", "FabricResult", "FabricSpec", "FabricStats", "FabricTimeline",
+    "FabricUnits", "LinkEval", "aggregate_stats", "auto_link_chunk", "bringup",
+    "fabric_stats_impl", "instantiate_link", "link_record", "make_fabric_timeline",
+    "make_fabric_units", "run_fabric_timeline", "run_fabric_timeline_impl",
+    "state_from_assignment", "summarize_chaos",
+)
+MESH_SIZES = (2, 3)                  # placeholder meshes: k x cuda:0
+MESH_LINK_CHUNK = 256                # FABRIC_1K's 1,008 links in 4 chunks
+MESH_CHAOS = ("mid-linkflap", "vtrs_ssm", 24)   # 48 links in 2 chunks of 24
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -1303,14 +1339,15 @@ def sweep_grids() -> list:
     ]
 
 
-def phase_sweep(seed: int) -> dict:
+def phase_sweep(seed: int, store: dict | None = None) -> dict:
     """The sweep path: each grid of ``sweep_grids`` through ``sweep`` at its
     automatic chunk size, with the launch counts set to 0 just before and
     read just after; then per grid its time (CUDA events) beside the
     per-point loop's (the same grid at ``chunk_size=1``, which it must equal
     bit for bit), its peak memory beside chunk x per-point bytes, the
     port's per-point oracle ``sweep_reference`` on a sub-grid, and the CPU
-    plain path on a 20 x 20 subset of the units."""
+    plain path on a 20 x 20 subset of the units.  ``store`` receives each
+    grid's (request, result, first-call ms) for ``phase_mesh``."""
     import numpy as np
     import torch
 
@@ -1422,6 +1459,8 @@ def phase_sweep(seed: int) -> dict:
               f"{SUB_SIDE}x{SUB_SIDE} subset; {time.perf_counter() - wall0:.1f} s of checks)")
     print(f"[sweep] peak device memory of the phase {torch.cuda.max_memory_allocated()} bytes "
           f"(torch.cuda.max_memory_allocated since the last grid's reset)")
+    if store is not None:
+        store.update({name: (req, out[name], ms[name]) for name, req, _, _ in grids})
     return launches
 
 
@@ -1684,7 +1723,7 @@ def _hold_links(name, got, want):
                  f"({g.dtype}{tuple(g.shape)} against {w.dtype}{tuple(w.shape)})")
 
 
-def phase_fabric(seed: int) -> dict:
+def phase_fabric(seed: int, store: dict | None = None) -> dict:
     """The fabric path: ``bringup`` on FABRIC_1K (WDM16, 1,008 links) for
     seq_retry, vtrs_ssm and protocol_lta and on FABRIC_10K (10,080 links,
     pod-shared combs) for vtrs_ssm and protocol_lta; fig21's grid through
@@ -1693,7 +1732,9 @@ def phase_fabric(seed: int) -> dict:
     against the same grid at ``chunk_size=1``, fig21's constraints-off
     parity on all 1,008 links (one flat ``oblivious_arbitrate`` over the
     core ``instantiate`` of every link), and per-link records of a link
-    subset against the CPU plain path run on those links alone."""
+    subset against the CPU plain path run on those links alone.  ``store``
+    receives each bring-up's ``FabricResult``, and their wall ms under
+    ``"ms"``, for ``phase_mesh``."""
     import torch
 
     from repro_torch.configs.fabric import FABRIC_CONFIGS
@@ -1803,6 +1844,9 @@ def phase_fabric(seed: int) -> dict:
     print(f"[fabric] fig21 constraints-off parity: {spec1k.n_links} links of bringup vtrs_ssm "
           f"bit-identical to one flat oblivious_arbitrate over {2 * spec1k.n_links} trials "
           f"({time.perf_counter() - t0:.1f} s)")
+    if store is not None:
+        store.update({key: out[key] for key in out if key[0] != "grid"})
+        store["ms"] = ms
     return launches
 
 
@@ -1820,7 +1864,8 @@ def phase_chaos(seed: int, store: dict | None = None) -> dict:
     just after.  Then per-step per-link fields against the CPU plain path
     (all 48 links of mid-linkflap/vtrs_ssm, warm and cold; a link subset of
     the 1,008 with link 100), and the no-fault parity on the card.  ``store``
-    receives every run's (state, stats) for ``phase_obs``."""
+    receives every run's (state, stats) for ``phase_obs`` and ``phase_mesh``,
+    and their wall ms under ``"ms"``."""
     import torch
 
     from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
@@ -1918,6 +1963,7 @@ def phase_chaos(seed: int, store: dict | None = None) -> dict:
           f"bit-identical to bringup, no probe spent after it")
     if store is not None:
         store.update(out)
+        store["ms"] = ms
     return launches
 
 
@@ -2109,6 +2155,149 @@ def phase_campaign(seed: int, full: dict) -> dict:
               f"{s_ms!r} ms, restore_campaign {r_ms!r} ms, tail {t_ms!r} ms ({t_p} probe "
               f"launches); restored state equal to the saved one, head + tail equal to the "
               f"uninterrupted warm run (final state and per-step stats)")
+    return launches
+
+
+def phase_mesh(seed: int, sweeps: dict, fabric: dict, chaos: dict) -> dict:
+    """The multi-device paths on the card, card against card: the size-1
+    ``make_sweep_mesh()`` and placeholder meshes of ``MESH_SIZES`` x cuda:0,
+    each bit for bit against the unsharded run, with the launch counts set
+    to 0 just before the mesh calls and read just after.  fig14's ``seq``
+    grid at ``chunk_size=5`` (15 chunks: a 2-way mesh leaves an empty one)
+    and fig5's WDM32 ``min_tr("lta")`` grid at ``chunk_size=3`` (the
+    ``bottleneck`` path) against unsharded runs at the same chunk size;
+    fig19's ``protocol_lta`` grid on the 2-way mesh at ``chunk_size=6``,
+    FABRIC_1K ``bringup`` for vtrs_ssm and protocol_lta at ``link_chunk=256``
+    and one FABRIC_MID chaos timeline with ``health=True`` against
+    ``phase_sweep``'s, ``phase_fabric``'s and ``phase_chaos``'s unsharded
+    runs (``sweeps``, ``fabric``, ``chaos``; at their own chunk sizes, which
+    the engine's results do not depend on).  Then a CPU-saved campaign
+    checkpoint of the chaos run's final state restored with ``shardings``
+    onto cuda:0, the reference's public surface imported from the port, and
+    one ``sigma_rlv=`` evaluator call: one ``DeprecationWarning``, the
+    result equal to the ``Variations`` form.  On one card the mesh times
+    measure the split's overhead, not a multi-device gain."""
+    import importlib
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import store as ckpt
+    from repro_torch.configs.fabric import FABRIC_CONFIGS, chaos_timeline
+    from repro_torch.configs.wdm import WDM_CONFIGS
+    from repro_torch.core import api
+    from repro_torch.core.protocol import ProtocolState, cold_state
+    from repro_torch.core.sweep import _leaves, sweep
+    from repro_torch.core.temporal import save_campaign
+    from repro_torch.core.variations import Variations
+    from repro_torch.fabric import bringup, make_fabric_units, run_fabric_timeline
+    from repro_torch.launch import SweepMesh, make_sweep_mesh
+    from repro_torch.obs.health import health_codes
+
+    cuda0 = torch.device("cuda", 0)
+    one = make_sweep_mesh()
+    if one.size != torch.cuda.device_count() or one.devices[0] != cuda0:
+        fail(f"make_sweep_mesh() gave {one.devices}")
+    meshes = [(f"make_sweep_mesh() (size {one.size})", one)] + [
+        (f"{k} x cuda:0", SweepMesh((cuda0,) * k)) for k in MESH_SIZES]
+
+    # The unsharded runs at the mesh runs' chunk sizes (new settings), timed.
+    grids = []
+    for name, chunk, on in (("fig14 wdm8 natural seq", 5, meshes),
+                            ("fig5 wdm32 lta min_tr", 3, meshes),
+                            ("fig19 wdm8 protocol_lta", 6, meshes[1:2])):
+        req, res, ms = sweeps[name]
+        if not name.startswith("fig19"):  # fig19: phase_sweep's run (automatic chunk size)
+            res, ms, _ = timed_call(lambda: sweep(req.replace(chunk_size=chunk)).data)
+        grids.append((name, req.replace(chunk_size=chunk), res, ms, on))
+    cfg_key, spec1k = FABRIC_CONFIGS["fabric1k-wdm16"]
+    cfg1k = WDM_CONFIGS[cfg_key]
+    tr0 = float(fig21_axes(cfg1k)["tr_mean"][0])
+    name, scheme, link_chunk = MESH_CHAOS
+    cfg_c, spec_c, tl_c = chaos_timeline(name)
+    units_c = make_fabric_units(cfg_c, spec_c, seed)
+
+    wrappers = reset_launches()
+    runs = []
+    for name_g, req, want, ms, on in grids:
+        for label, mesh in on:
+            got, mesh_ms, _ = timed_call(lambda: sweep(req.replace(mesh=mesh)).data)
+            runs.append((f"{name_g} chunk_size={req.chunk_size}", label, got, want, mesh_ms, ms))
+    for scheme_b in ("vtrs_ssm", "protocol_lta"):
+        want = fabric["fabric1k-wdm16", scheme_b]
+        for label, mesh in meshes:
+            got, mesh_ms, _ = timed_call(lambda: bringup(
+                cfg1k, spec1k, tr_mean=tr0, scheme=scheme_b, seed=seed,
+                link_chunk=MESH_LINK_CHUNK, mesh=mesh))
+            runs.append((f"fabric1k-wdm16 bringup {scheme_b} link_chunk={MESH_LINK_CHUNK}",
+                         label, (got.ev, got.stats, got.state, got.system),
+                         (want.ev, want.stats, want.state, want.system), mesh_ms,
+                         fabric["ms"]["fabric1k-wdm16", scheme_b]))
+    state_u, cs_u = chaos[name, scheme, True]
+    want_c = (state_u, cs_u._replace(health=health_codes(
+        cs_u.locked, cs_u.probes, cs_u.feasible, tl_c.link_alive, cfg_c.grid.n_ch)))
+    for label, mesh in meshes:
+        got, mesh_ms, _ = timed_call(lambda: run_fabric_timeline(
+            cfg_c, units_c, spec_c, tl_c, scheme=scheme, health=True, link_chunk=link_chunk,
+            mesh=mesh))
+        runs.append((f"{name} chaos {scheme} warm health=True link_chunk={link_chunk}", label,
+                     got, want_c, mesh_ms, chaos["ms"][name, scheme, True]))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[mesh] launches on the mesh path: {launches}")
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"kernel {k} was not launched on the mesh path")
+
+    for what, label, got, want, mesh_ms, ms in runs:
+        for leaf in _leaves(got):
+            if leaf.device != cuda0:
+                fail(f"{what} on {label}: a result on {leaf.device}")
+        _same(f"{what} on {label} against the unsharded run", got, want)
+        print(f"[mesh] {what} on {label}: {mesh_ms!r} ms (unsharded {ms!r} ms); "
+              f"bit-identical to the unsharded run")
+
+    # A CPU-saved campaign checkpoint restored onto the card with shardings.
+    state = runs[-1][2][0]
+    saved = ProtocolState(*(x.cpu() for x in state))
+    with tempfile.TemporaryDirectory() as d:
+        save_campaign(d, 6, saved)
+        target = cold_state(saved.lock.shape[0], saved.lock.shape[1], "cpu")
+        restored, r_ms, _ = timed_call(lambda: ckpt.restore(
+            d, 6, target, shardings=ProtocolState(cuda0, "cuda:0", cuda0, "cuda")))
+    for f, g, w in zip(saved._fields, restored, saved):
+        if g.device.type != "cuda" or g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            fail(f"restore(shardings=): {f} on {g.device} differs from the saved leaf")
+    print(f"[mesh] restore(shardings=cuda:0) of a CPU-saved campaign checkpoint "
+          f"({saved.lock.shape[0]} x {saved.lock.shape[1]} state): {r_ms!r} ms; every leaf "
+          f"on the card and equal to the saved one")
+
+    # The reference's public surface, and a deprecated sigma_rlv= call.
+    core = importlib.import_module("repro_torch.core")
+    fab = importlib.import_module("repro_torch.fabric")
+    missing = [n for n in SURFACE_CORE if not hasattr(core, n)]
+    missing += [n for n in SURFACE_FABRIC if not hasattr(fab, n)]
+    configs = importlib.import_module("repro_torch.configs")
+    if missing or not (configs.WDM_CONFIGS and configs.FABRIC_CONFIGS):
+        fail(f"the port lacks {missing} of the reference's surface")
+    cfg = WDM_CONFIGS["wdm8-g200"]
+    units = api.make_units(cfg, seed, N_SIDE, N_SIDE)
+    rlv = float(np.float32(2.24))
+    with warnings.catch_warnings(record=True) as record:
+        warnings.simplefilter("always")
+        legacy = core.evaluate_scheme(cfg, units, "vtrs_ssm", TR, sigma_rlv=rlv)
+    dep = [w for w in record if issubclass(w.category, DeprecationWarning)]
+    if len(dep) != 1 or Path(dep[0].filename).resolve() != Path(__file__).resolve():
+        fail(f"sigma_rlv=: {[(str(w.message), w.filename) for w in dep]}")
+    _same("evaluate_scheme(sigma_rlv=) against its Variations form", legacy,
+          core.evaluate_scheme(cfg, units, "vtrs_ssm", variations=Variations(
+              tr_mean=TR, sigma_rlv=rlv)))
+    print(f"[mesh] surface: {len(SURFACE_CORE)} names of repro_torch.core and "
+          f"{len(SURFACE_FABRIC)} of repro_torch.fabric import; evaluate_scheme(sigma_rlv=) "
+          f"warned once ({dep[0].category.__name__}) and equals the Variations form "
+          f"(CAFP {float(legacy.cafp)!r})")
     return launches
 
 
@@ -2659,20 +2848,23 @@ def main() -> int:
         max_err[k] = max(max_err[k], v)
     print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
     # Each kernel's launches: the sum over the paths.
-    paths, temporal_runs, chaos_runs = [], {}, {}
+    paths, temporal_runs, chaos_runs, sweep_runs, fabric_runs = [], {}, {}, {}, {}
     for name, phase in (("main", phase_main), ("lta", phase_lta), ("protocol", phase_protocol),
                         ("temporal", lambda seed: phase_temporal(seed, N_SIDE, temporal_runs)),
-                        ("sweep", phase_sweep), ("fabric", phase_fabric),
+                        ("sweep", lambda seed: phase_sweep(seed, sweep_runs)),
+                        ("fabric", lambda seed: phase_fabric(seed, fabric_runs)),
                         ("chaos", lambda seed: phase_chaos(seed, chaos_runs)),
                         ("interconnect", phase_interconnect),
                         ("campaign", lambda seed: phase_campaign(seed, temporal_runs)),
+                        ("mesh", lambda seed: phase_mesh(seed, sweep_runs, fabric_runs,
+                                                         chaos_runs)),
                         ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs))):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
-          f"interconnect, campaign and obs paths: {launches}")
+          f"interconnect, campaign, mesh and obs paths: {launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")

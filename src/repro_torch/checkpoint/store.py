@@ -49,6 +49,45 @@ def _map_with_path(fn: Callable[[str, Any], Any], tree, path: tuple = ()):
     return fn("/".join(path), tree)
 
 
+def _flat_up_to(tree, other) -> Dict[str, Any]:
+    """``other``'s subtrees at the leaves of ``tree``, keyed by their paths:
+    ``other`` must have ``tree``'s structure down to its leaves (as
+    ``treedef.flatten_up_to`` requires in the reference), else
+    ``ValueError``."""
+    out: Dict[str, Any] = {}
+
+    def walk(a, b, path):
+        def mismatch():
+            raise ValueError(
+                f"shardings do not match the target's structure at "
+                f"{'/'.join(path) or '<root>'}: {type(b).__name__} against "
+                f"{type(a).__name__}")
+
+        if a is None:
+            if b is not None:
+                mismatch()
+        elif _is_namedtuple(a):
+            if type(b) is not type(a):
+                mismatch()
+            for f, x, y in zip(a._fields, a, b):
+                walk(x, y, path + (f".{f}",))
+        elif isinstance(a, (list, tuple)):
+            if type(b) is not type(a) or len(b) != len(a):
+                mismatch()
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, path + (str(i),))
+        elif isinstance(a, dict):
+            if not isinstance(b, dict) or set(b) != set(a):
+                mismatch()
+            for k in sorted(a):
+                walk(a[k], b[k], path + (str(k),))
+        else:
+            out["/".join(path)] = b
+
+    walk(tree, other, ())
+    return out
+
+
 def _flat(tree) -> Dict[str, Any]:
     """Flattened path key -> leaf, in the reference's order."""
     out: Dict[str, Any] = {}
@@ -107,13 +146,12 @@ def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
 
     Each leaf keeps the checkpoint's dtype and goes to the device of the
     target's leaf (the CPU where the target's leaf is not a tensor).
-    ``shardings`` (the reference's multi-device restore) is not ported and
-    raises ``NotImplementedError``.
+    ``shardings``, a tree of the target's structure whose leaves are
+    ``torch.device``s, device strings or None, places each restored leaf on
+    its device instead (None keeps the target leaf's); a tree of another
+    structure raises ``ValueError``.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): multi-device restore is not ported yet; it "
-            "arrives with the sweep engine's mesh= (ROADMAP queue 1)")
+    placement = _flat_up_to(target_tree, shardings) if shardings is not None else {}
     d = Path(ckpt_dir) / f"step_{step:08d}"
     arrays: Dict[str, np.ndarray] = {}
     index: Dict[str, Dict] = {}
@@ -136,8 +174,10 @@ def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
             globals_[key][sl] = arrays[k]
 
     def leaf(key, target):
-        dev = target.device if isinstance(target, torch.Tensor) else "cpu"
-        return torch.as_tensor(globals_[key], device=dev)
+        dev = placement.get(key)
+        if dev is None:
+            dev = target.device if isinstance(target, torch.Tensor) else "cpu"
+        return torch.as_tensor(globals_[key], device=torch.device(dev))
 
     return _map_with_path(leaf, target_tree)
 

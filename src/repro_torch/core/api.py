@@ -36,7 +36,7 @@ from .sampling import (SystemBatch, UnitSamples, draw_unit_samples, instantiate,
 from .search_table import build_search_tables
 from .sequential import sequential_tuning
 from .ssm import Assignment, single_step_matching
-from .variations import Variations, as_variations, point_count
+from .variations import Variations, as_variations, merge_legacy_overrides, point_count
 
 # An arbiter maps (cfg, tables, spec) -> Assignment using only oblivious
 # primitives (entry indices and masking events; never wavelength values).
@@ -241,10 +241,11 @@ register_scheme(
 )
 
 
-def _eval_variations(variations, tr_mean, *, caller: str,
+def _eval_variations(variations, tr_mean, legacy: dict, *, caller: str,
                      allow_tr: bool = True) -> Variations:
-    """Normalize an evaluator's (tr_mean, variations) inputs."""
-    over = as_variations(variations)
+    """Normalize an evaluator's (tr_mean, variations, legacy keyword) inputs."""
+    # stacklevel 4: this helper adds a frame between the user and the warning
+    over = merge_legacy_overrides(variations, legacy, caller=caller, stacklevel=4)
     if tr_mean is not None:
         if "tr_mean" in over:
             raise ValueError(
@@ -334,10 +335,24 @@ def evaluate_scheme(
     scheme: str,
     tr_mean=None,
     variations: Variations | None = None,
+    sigma_rlv=None,
+    sigma_fsr_frac=None,
+    sigma_tr_frac=None,
+    sigma_go=None,
+    sigma_llv_frac=None,
+    fsr_mean=None,
 ) -> EvalResult:
     """Instantiate systems, run the scheme, and score CAFP against the
-    scheme's ideal policy (Eq. 6)."""
-    over = _eval_variations(variations, tr_mean, caller="evaluate_scheme")
+    scheme's ideal policy (Eq. 6).  The ``sigma_*=`` and ``fsr_mean=``
+    keywords are deprecated shims: they warn, and give the results of the
+    same values passed in ``variations``."""
+    over = _eval_variations(
+        variations, tr_mean,
+        dict(sigma_rlv=sigma_rlv, sigma_fsr_frac=sigma_fsr_frac,
+             sigma_tr_frac=sigma_tr_frac, sigma_go=sigma_go,
+             sigma_llv_frac=sigma_llv_frac, fsr_mean=fsr_mean),
+        caller="evaluate_scheme",
+    )
     r = scheme_trials(cfg, units, scheme, over)
     return EvalResult(
         afp=metrics.afp(r.ideal_ok),
@@ -367,9 +382,22 @@ def evaluate_policy(
     policy: str,
     tr_mean=None,
     variations: Variations | None = None,
+    sigma_rlv=None,
+    sigma_go=None,
+    sigma_llv_frac=None,
+    sigma_fsr_frac=None,
+    sigma_tr_frac=None,
+    fsr_mean=None,
 ) -> torch.Tensor:
-    """Ideal-model policy evaluation: AFP at a given mean tuning range."""
-    over = _eval_variations(variations, tr_mean, caller="evaluate_policy")
+    """Ideal-model policy evaluation: AFP at a given mean tuning range (the
+    ``sigma_*=`` keywords as in ``evaluate_scheme``)."""
+    over = _eval_variations(
+        variations, tr_mean,
+        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+             fsr_mean=fsr_mean),
+        caller="evaluate_policy",
+    )
     return metrics.afp(policy_trials(cfg, units, policy, over))
 
 
@@ -378,11 +406,23 @@ def policy_trial_min_tr(
     units: UnitSamples,
     policy: str,
     variations: Variations | None = None,
+    sigma_rlv=None,
+    sigma_go=None,
+    sigma_llv_frac=None,
+    sigma_fsr_frac=None,
+    sigma_tr_frac=None,
+    fsr_mean=None,
 ) -> torch.Tensor:
     """(T,) per-trial ideal minimum mean TR at the given variation overrides
-    (every point's trials, for per-point overrides)."""
-    over = _eval_variations(variations, None, caller="policy_min_tr",
-                            allow_tr=False)
+    (every point's trials, for per-point overrides; the ``sigma_*=``
+    keywords as in ``evaluate_scheme``)."""
+    over = _eval_variations(
+        variations, None,
+        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+             fsr_mean=fsr_mean),
+        caller="policy_min_tr", allow_tr=False,
+    )
     sys = instantiate(cfg, units, over)
     return ideal.min_tr(sys, policy, cfg.s)
 
@@ -392,10 +432,23 @@ def policy_min_tr(
     units: UnitSamples,
     policy: str,
     variations: Variations | None = None,
+    sigma_rlv=None,
+    sigma_go=None,
+    sigma_llv_frac=None,
+    sigma_fsr_frac=None,
+    sigma_tr_frac=None,
+    fsr_mean=None,
 ) -> torch.Tensor:
-    """Minimum mean TR for complete arbitration success over the batch."""
-    return metrics.min_tr_for_complete_success(
-        policy_trial_min_tr(cfg, units, policy, variations))
+    """Minimum mean TR for complete arbitration success over the batch (the
+    ``sigma_*=`` keywords as in ``evaluate_scheme``)."""
+    over = _eval_variations(
+        variations, None,
+        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+             fsr_mean=fsr_mean),
+        caller="policy_min_tr", allow_tr=False,
+    )
+    return metrics.min_tr_for_complete_success(policy_trial_min_tr(cfg, units, policy, over))
 
 
 def make_units(cfg: ArbitrationConfig, seed: int, n_laser: int, n_ring: int,

@@ -46,7 +46,7 @@ recorder code runs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -70,6 +70,24 @@ from .search_table import SearchTables, first_true
 from .ssm import Assignment
 
 _ORDERS = ("constrained", "physical", "chain")
+
+#: The signature of the engine's re-search primitive, ``masked_first_entry``:
+#: (wl (T, C, E), taken (T, L), floor (T, C)) -> (first, found).
+ResearchFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], tuple]
+
+
+def masked_first_entry(wl: torch.Tensor, taken: torch.Tensor, floor: torch.Tensor):
+    """Batched masked re-search: first visible entry at-or-after ``floor``.
+
+    wl: (T, C, E) int32 line ids of C search tables per trial (-1 padding);
+    taken: (T, L) bool captured-line mask; floor: (T, C) int32 minimum entry
+    index.  Returns (first (T, C) int32 entry or -1, found (T, C) bool).
+
+    The protocol's unit primitive: one call re-searches a whole batch of
+    tables at once.  It is ``kernels.probe.masked_research``: the ``probe``
+    kernel for CUDA tensors, its plain version for CPU tensors.
+    """
+    return masked_research(wl, taken, floor)
 
 
 class ProtocolState(NamedTuple):

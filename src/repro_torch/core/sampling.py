@@ -13,8 +13,8 @@ import torch
 
 from . import prng
 from .grid import ArbitrationConfig
-from .variations import (Variations, apply_axis_transforms, as_variations, is_per_point,
-                         point_count, transform_axes)
+from .variations import (Variations, apply_axis_transforms, is_per_point,
+                         merge_legacy_overrides, point_count, transform_axes)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -101,11 +101,20 @@ def instantiate(
     cfg: ArbitrationConfig,
     units: UnitSamples,
     variations: Variations | None = None,
+    *,
+    sigma_rlv: float | None = None,
+    sigma_go: float | None = None,
+    sigma_llv_frac: float | None = None,
+    sigma_fsr_frac: float | None = None,
+    sigma_tr_frac: float | None = None,
+    fsr_mean: float | None = None,
 ) -> SystemBatch:
     """Apply sigma scales to unit samples and cross lasers x rings (Eq. 3-4).
 
     ``variations`` (a ``Variations`` or plain mapping) carries the
-    overrides; unset axes fall back to the config.  Registered axes with a
+    overrides; unset axes fall back to the config.  The ``sigma_*=``
+    keywords are the deprecated shims of ``variations.LEGACY_SIGMA_KWARGS``:
+    bit-identical, but they warn.  Registered axes with a
     ``transform`` hook (e.g. ``thermal_drift``) are applied after the core
     sampling math; ``tr_mean`` is ignored here (the tuning range is an
     evaluation-time quantity).
@@ -122,7 +131,13 @@ def instantiate(
     The rest of the arithmetic follows the reference's un-jitted
     ``instantiate`` term for term, bit for bit on the same units.
     """
-    over = as_variations(variations)
+    over = merge_legacy_overrides(
+        variations,
+        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+             fsr_mean=fsr_mean),
+        caller="instantiate",
+    )
     grid = cfg.grid
     dev = units.u_llv.device
     n_points = point_count(over)

@@ -19,11 +19,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels.table_build import build_tables
 from .reach import trial_value
 from .sampling import SystemBatch
+
+#: The padding of a table's ``delta`` beyond its valid entries (float32 +inf).
+SENTINEL = np.float32(np.inf)
 
 
 class SearchTables(NamedTuple):

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from .relation import _PHI, ChainSpec
+from .relation import _PHI, RI_PHI, ChainSpec  # noqa: F401  (RI_PHI: the reference's name here)
 from .search_table import SearchTables, first_true
 
 

@@ -44,8 +44,10 @@ CUDA units go through the hand-written kernels, CPU units through their
 plain versions.  Fabric sweeps (``fabric=``, ``repro_torch.fabric``) give
 each grid point its own copy of the fabric's links, so a chunk of points is
 one batch of links, and each link chunk one batch of 2 trials a link.
-``mesh=`` (multi-device sweeps) is not ported yet and raises
-``NotImplementedError``.  Under an installed ``repro_torch.obs.phase``
+``mesh=`` (a 1-D ``repro_torch.launch.SweepMesh``, e.g. from
+``make_sweep_mesh``) splits the chunk axis of grid points over devices
+(``chunked_map``): bit-identical to the unsharded engine and invariant to the
+mesh size.  Under an installed ``repro_torch.obs.phase``
 recorder a sweep notes its chunk plan (``sweep.plan``, and
 ``chunked_map.sweep_points``) and runs its points through
 ``measured_call`` (an ``execute`` span, and the device watermark under
@@ -56,6 +58,7 @@ points: the engine's oracle, consuming the same validated ``SweepRequest``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping, NamedTuple
 
@@ -76,11 +79,20 @@ from .sampling import UnitSamples
 from .search_table import max_entries_for
 from .temporal import TemporalStats, Timeline, run_timeline_impl
 from .variations import Variations, _maybe_validate, axis_names, axis_spec
+from ..launch.mesh import SweepMesh, check_mesh
 from ..obs.phase import current_recorder, measured_call, note
 
 #: Per-chunk device-memory budget for automatic chunk sizing [bytes]: 4 GiB,
 #: 5 % of an 80 GB card.
 _CHUNK_BUDGET = 4 * 1024 ** 3
+
+
+def __getattr__(name: str):
+    # The pre-registry engine exposed its axis names as a module-level tuple;
+    # served live, so that axes registered later show through the old name.
+    if name == "AXIS_NAMES":
+        return axis_names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _tree_map(fn: Callable, *trees):
@@ -103,28 +115,81 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def chunked_map(fn: Callable, xs, *, chunk: int, tag: str | None = None):
-    """Run ``fn`` on chunks of ``chunk`` items of ``xs`` and concatenate the
-    results along their leading axis.
+def _to(tree, device):
+    """Every tensor of ``tree`` on ``device`` (a no-op where it lies there,
+    or where ``device`` is None); other leaves as they are."""
+    if device is None:
+        return tree
+    return _tree_map(lambda a: a.to(device) if isinstance(a, torch.Tensor) else a, tree)
+
+
+def _home_device(trees, default: torch.device) -> torch.device:
+    """The device results come back to: the first tensor's among ``trees``,
+    else ``default``."""
+    for leaf in _leaves(trees):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return default
+
+
+def _on(device):
+    """Make ``device`` current while a chunk runs there (the kernel wrappers
+    launch on their inputs' device in any case)."""
+    if device is not None and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def chunked_map(fn: Callable, xs, *, chunk: int, mesh: SweepMesh | None = None,
+                broadcast: tuple = (), tag: str | None = None):
+    """Run ``fn(*broadcast, item)`` on chunks of ``chunk`` items of ``xs`` and
+    concatenate the results along their leading axis.
 
     ``xs`` is a tensor, an array, or a (named, nested) tuple of them sharing
     the leading axis (the fabric layer's ``FabricUnits``), each chunk sliced
-    alike; the results are tensors or (named) tuples of tensors, each with
-    the chunk's leading axis, None leaves staying None.  Peak memory is one
-    chunk's; the last chunk is simply smaller (nothing is padded).
+    alike; ``broadcast`` trees are passed whole to every chunk.  The results
+    are tensors or (named) tuples of tensors, each with the chunk's leading
+    axis, None leaves staying None.  Peak memory is one chunk's; the last
+    chunk is simply smaller (nothing is padded).
 
-    ``tag`` names the plan note ``chunked_map.<tag>`` (items, chunk,
-    n_chunks) for an installed phase recorder.  The port runs eagerly, so
-    the note is made once per call (the reference's, once per compilation).
+    With ``mesh`` the chunk count is rounded up to a multiple of
+    ``mesh.size`` and device d takes the contiguous chunks [d k, (d + 1) k)
+    of the k each, as the reference's ``shard_map`` splits them; chunks past
+    the end are empty and skipped.  A chunk's slice of ``xs`` (and
+    ``broadcast``, once a device) moves to its device, runs there, and its
+    result comes back to the device of ``xs`` (of the first tensor).  The
+    chunks are those of the unsharded path and every path is exact per
+    trial, so the result is bit-identical for every mesh.  Chunks are issued
+    in device order from the calling thread.  Only meshes that repeat one
+    device have been run; distinct cards, and any overlap between them, are
+    not yet run or measured (ROADMAP queue 2).
+
+    ``tag`` names the plan note ``chunked_map.<tag>`` (items, chunk and the
+    rounded n_chunks) for an installed phase recorder.  The port runs
+    eagerly, so the note is made once per call (the reference's, once per
+    compilation).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     size = _leaves(xs)[0].shape[0]
+    devices = (None,) if mesh is None else mesh.devices  # None: stay where xs lies
+    per_device = -(-int(size) // (int(chunk) * len(devices)))  # whole chunks per device
+    n_chunks = per_device * len(devices)
     if tag is not None:
-        note(f"chunked_map.{tag}", items=int(size), chunk=int(chunk),
-             n_chunks=-(-int(size) // int(chunk)))
-    outs = [fn(_tree_map(lambda a: a[start:start + chunk], xs))
-            for start in range(0, size, chunk)]
+        note(f"chunked_map.{tag}", items=int(size), chunk=int(chunk), n_chunks=n_chunks)
+
+    home = None if mesh is None else _home_device((xs, broadcast), devices[0])
+    outs = []
+    for d, device in enumerate(devices):
+        starts = [c * chunk for c in range(d * per_device, (d + 1) * per_device)
+                  if c * chunk < size]
+        if not starts:
+            continue
+        with _on(device):
+            shared = _to(broadcast, device)
+            for start in starts:
+                part = _tree_map(lambda a: a[start:start + chunk], xs)
+                outs.append(_to(fn(*shared, _to(part, device)), home))
     return _tree_map(lambda *parts: torch.cat(parts), *outs)
 
 
@@ -188,8 +253,11 @@ class SweepRequest:
             axis; any scheme is accepted.  A per-transceiver ``Timeline``
             with ``fabric=``, or a ``FabricTimeline`` without it, is
             rejected at construction.
-    mesh:   the reference's multi-device sweeps; not ported yet
-            (``NotImplementedError``).
+    mesh:   optional 1-D ``repro_torch.launch.SweepMesh``; the chunk axis of
+            grid points is split over its devices (``chunked_map``),
+            bit-identical to the unsharded engine and invariant to the mesh
+            size.  A fabric sweep's inner link chunks stay unsharded.
+            ``sweep_reference`` ignores it.
 
     Validation happens at construction, so an invalid request never reaches
     the engine (or the reference loop).
@@ -209,10 +277,6 @@ class SweepRequest:
     fabric: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sweep(mesh=...): multi-device sweeps are not ported yet; they "
-                "arrive after single-device parity (ROADMAP queue 1)")
         axes = {
             str(k): np.asarray(v, np.float32).reshape(-1)
             for k, v in dict(self.axes).items()
@@ -237,6 +301,7 @@ class SweepRequest:
                 _maybe_validate(spec, v)
         for name, v in fixed.items():
             _maybe_validate(axis_spec(name), v)
+        check_mesh(self.mesh)
         if self.chunk_size is not None and self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
         if self.timeline is not None and self.fabric is None:
@@ -496,15 +561,15 @@ def sweep(request: SweepRequest) -> SweepResult:
         per_point = scheme_point_bytes(cfg, 2 * link_chunk)
         chunk = request.chunk_size or int(
             np.clip(_CHUNK_BUDGET // max(per_point, 1), 1, points.shape[0]))
-        evaluate = lambda pts: _fabric_chunk(  # noqa: E731
-            cfg, units, request.fabric, fixed, request.timeline, pts, names=names,
-            scheme=scheme, link_chunk=link_chunk)
+        evaluate = lambda u, tl, pts: _fabric_chunk(  # noqa: E731
+            cfg, u, request.fabric, fixed, tl, pts, names=names, scheme=scheme,
+            link_chunk=link_chunk)
     else:
         link_chunk = 0
         chunk = request.chunk_size or _auto_chunk(cfg, units, points.shape[0], scheme)
-        evaluate = lambda pts: _eval_chunk(  # noqa: E731
-            cfg, units, fixed, request.timeline, pts, names=names, metric=metric,
-            policy=policy, scheme=scheme)
+        evaluate = lambda u, tl, pts: _eval_chunk(  # noqa: E731
+            cfg, u, fixed, tl, pts, names=names, metric=metric, policy=policy,
+            scheme=scheme)
     rec = current_recorder()
     if rec is not None:
         if request.fabric is None:
@@ -519,7 +584,9 @@ def sweep(request: SweepRequest) -> SweepResult:
             target=scheme if scheme is not None else policy,
         )
     out = measured_call("sweep", chunked_map, (evaluate, points),
-                        {"chunk": chunk, "tag": "sweep_points"}, budget=_CHUNK_BUDGET)
+                        {"chunk": chunk, "mesh": request.mesh,
+                         "broadcast": (units, request.timeline), "tag": "sweep_points"},
+                        budget=_CHUNK_BUDGET)
     if tr_idx is not None:
         afp = _afp_from_trial_min_tr(out.reshape(shape + out.shape[1:]),
                                      request.axes["tr_mean"])

@@ -19,6 +19,7 @@ instance, else the registry default evaluated against the
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
@@ -188,8 +189,46 @@ def as_variations(value) -> Variations:
         return Variations(**dict(value))
     raise TypeError(
         f"expected a Variations, mapping, or None, got {type(value).__name__}: "
-        f"{value!r} — pass overrides as Variations(sigma_rlv=...)"
+        f"{value!r} — pass overrides as Variations(sigma_rlv=...) (the "
+        "sigma_*= keywords remain as deprecated shims)"
     )
+
+
+#: Keyword names of the pre-``Variations`` sampling and evaluation API, kept
+#: as deprecated shims (in the order of the old ``instantiate`` signature).
+LEGACY_SIGMA_KWARGS = (
+    "sigma_rlv",
+    "sigma_go",
+    "sigma_llv_frac",
+    "sigma_fsr_frac",
+    "sigma_tr_frac",
+    "fsr_mean",
+)
+
+
+def merge_legacy_overrides(variations, legacy: Mapping[str, Any], *,
+                           caller: str, stacklevel: int = 3) -> Variations:
+    """Fold deprecated ``sigma_*=`` keyword overrides into a ``Variations``.
+
+    Emits one ``DeprecationWarning`` naming the keywords actually given;
+    the result is the same ``Variations`` as passing those values in it, so
+    results are bit-identical.  An axis given both ways is an error
+    (``Variations.merge``).  ``stacklevel`` attributes the warning: 3 names
+    the caller of a function that calls this directly (``instantiate``);
+    evaluators with a frame in between pass 4, so that the warning names the
+    user's call site.
+    """
+    base = as_variations(variations)
+    given = {k: v for k, v in legacy.items() if v is not None}
+    if not given:
+        return base
+    warnings.warn(
+        f"{caller}: the {sorted(given)} keyword overrides are deprecated; "
+        "pass variations=Variations(...) instead",
+        DeprecationWarning,
+        stacklevel=stacklevel,
+    )
+    return base.merge(given)
 
 
 def apply_axis_transforms(sys, variations, cfg):

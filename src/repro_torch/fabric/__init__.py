@@ -6,8 +6,9 @@ comb coupling), ``bringup`` (link-chunked bring-up, ``FabricStats``) and
 Sweep whole fabrics over variation grids with ``SweepRequest(fabric=...)``;
 compose drift/fault timelines with ``SweepRequest(fabric=..., timeline=...)``.
 
-The reference's per-link ``instantiate_link`` is ``instantiate_links`` here:
-every link at once, as one flat batch of 2 trials a link.
+The reference's per-link ``instantiate_link`` is here too; the engines use
+``instantiate_links``: every link at once, as one flat batch of 2 trials a
+link.
 """
 from .bringup import (
     FabricResult,
@@ -28,7 +29,7 @@ from .chaos import (
     run_fabric_timeline_impl,
     summarize_chaos,
 )
-from .sampling import FabricUnits, instantiate_links, make_fabric_units
+from .sampling import FabricUnits, instantiate_link, instantiate_links, make_fabric_units
 from .spec import FabricSpec
 
 __all__ = [
@@ -43,6 +44,7 @@ __all__ = [
     "auto_link_chunk",
     "bringup",
     "fabric_stats_impl",
+    "instantiate_link",
     "instantiate_links",
     "link_record",
     "make_fabric_timeline",

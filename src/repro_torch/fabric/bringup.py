@@ -47,6 +47,7 @@ from ..core.sampling import SystemBatch, per_trial
 from ..core.ssm import Assignment
 from ..core.sweep import _CHUNK_BUDGET, chunked_map, scheme_point_bytes
 from ..core.variations import Variations, as_variations, is_per_point
+from ..launch.mesh import check_mesh
 from ..obs.phase import current_recorder, measured_call
 from .sampling import FabricUnits, instantiate_links, make_fabric_units
 from .spec import FabricSpec
@@ -280,9 +281,10 @@ def _per_link_names(variations: Variations) -> tuple:
 
 
 def _map_links(cfg, spec, scheme, variations: Variations, units: FabricUnits,
-               link_chunk: int, tag: str = "fabric_links") -> LinkEval:
+               link_chunk: int, tag: str = "fabric_links", mesh=None) -> LinkEval:
     """``_eval_links`` over ``link_chunk`` links a batch, the per-link
-    overrides sliced with their links (``tag`` names the chunk-plan note)."""
+    overrides sliced with their links (``tag`` names the chunk-plan note;
+    ``mesh`` splits the link chunks over its devices)."""
     names = _per_link_names(variations)
 
     def run(item):
@@ -290,7 +292,7 @@ def _map_links(cfg, spec, scheme, variations: Variations, units: FabricUnits,
         return _eval_links(cfg, spec, scheme, variations.replace(**dict(zip(names, values))), u)
 
     values = tuple(torch.as_tensor(variations.get(name)) for name in names)
-    return chunked_map(run, (units, values), chunk=link_chunk, tag=tag)
+    return chunked_map(run, (units, values), chunk=link_chunk, mesh=mesh, tag=tag)
 
 
 def fabric_stats_impl(
@@ -389,13 +391,12 @@ def bringup(
     memory budget).  Units are drawn by ``make_fabric_units`` on ``device``
     (CUDA unless named).  Under an installed ``repro_torch.obs.phase``
     recorder the link plan is noted (``bringup.plan``) and the links run
-    through ``measured_call``.  ``mesh`` (multi-device bring-up) is not
-    ported yet and raises ``NotImplementedError``.
+    through ``measured_call``.  ``mesh`` (a 1-D
+    ``repro_torch.launch.SweepMesh``) splits the link-chunk axis over its
+    devices, bit-identical to the unsharded path; the results come back to
+    the units' device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "bringup(mesh=...): multi-device bring-up is not ported yet; it "
-            "arrives with the sweep engine's mesh= (ROADMAP queue 1)")
+    mesh = check_mesh(mesh)
     var = as_variations(variations)
     if tr_mean is not None:
         var = var.replace(tr_mean=tr_mean)
@@ -410,7 +411,7 @@ def bringup(
             budget=_CHUNK_BUDGET,
         )
     ev = measured_call("bringup", _map_links,
-                       (cfg, spec, scheme, var, units, chunk, "bringup_links"), {},
+                       (cfg, spec, scheme, var, units, chunk, "bringup_links", mesh), {},
                        budget=_CHUNK_BUDGET)
     stats = aggregate_stats(cfg, spec, ev)
     k, n = spec.n_links, cfg.grid.n_ch

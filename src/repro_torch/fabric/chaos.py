@@ -57,6 +57,7 @@ from ..core.search_table import build_search_tables
 from ..core.sweep import chunked_map
 from ..core.temporal import _protocol_kwargs, _ramp, _where_trials, protocol_relock
 from ..core.variations import Variations, apply_axis_transforms, as_variations, is_per_point
+from ..launch.mesh import check_mesh
 from ..obs.health import health_codes
 from .bringup import (
     FabricStats,
@@ -429,7 +430,7 @@ def _relock_step(cfg, scheme, tr, warm, transactional, patience, hysteresis, ite
 
 def _run_chaos(cfg, units: FabricUnits, spec: FabricSpec, timeline: FabricTimeline,
                var: Variations, *, n_points: int | None, scheme: str, warm: bool,
-               transactional: bool, patience, hysteresis, link_chunk: int):
+               transactional: bool, patience, hysteresis, link_chunk: int, mesh=None):
     """The chaos loop over ``units.n_links`` links: the fabric's K links, or
     ``n_points`` copies of them (point-major, with per-link overrides and a
     timeline tiled to match) whose stats get a (P,) axis after the step
@@ -450,7 +451,7 @@ def _run_chaos(cfg, units: FabricUnits, spec: FabricSpec, timeline: FabricTimeli
 
     tl0 = FabricTimeline(*(a[0] for a in timeline))
     st, ev0, feas0 = chunked_map(lambda item: _bringup_step(cfg, scheme, tr, item),
-                                 (sys_links, tl0, tr_links), chunk=link_chunk)
+                                 (sys_links, tl0, tr_links), chunk=link_chunk, mesh=mesh)
     zeros = torch.zeros((k_all,), dtype=torch.int32, device=st.lock.device)
     stats = [step_stats(ev0)]
     wls = [ev0.wl]
@@ -462,7 +463,7 @@ def _run_chaos(cfg, units: FabricUnits, spec: FabricSpec, timeline: FabricTimeli
         st, rec, per_s = chunked_map(
             lambda item: _relock_step(cfg, scheme, tr, warm, transactional, patience,
                                       hysteresis, item),
-            (sys_links, tl_s, st, tr_links), chunk=link_chunk)
+            (sys_links, tl_s, st, tr_links), chunk=link_chunk, mesh=mesh)
         stats.append(step_stats(rec))
         wls.append(rec.wl)
         per.append(per_s)
@@ -505,14 +506,12 @@ def run_fabric_timeline_impl(
     ``health=True`` also fills ``FabricChaosStats.health``, the (S, K) int8
     post-mortem matrix of ``repro_torch.obs.health`` codes (down / hopeless
     / degraded / relocking / healthy), folded from the per-step per-link
-    stats above, so it never changes the arbitration outcome.  ``mesh``
-    (multi-device chaos) is not ported yet and raises
-    ``NotImplementedError``.
+    stats above, so it never changes the arbitration outcome.  ``mesh`` (a
+    1-D ``repro_torch.launch.SweepMesh``) splits each step's link chunks
+    over its devices; the carried state comes back to the units' device
+    every step, so the result is bit-identical to the unsharded path.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fabric_timeline(mesh=...): multi-device chaos is not ported yet; "
-            "it arrives with the sweep engine's mesh= (ROADMAP queue 1)")
+    mesh = check_mesh(mesh)
     var = as_variations(variations)
     k, n = spec.n_links, cfg.grid.n_ch
     if timeline.n_links != k or timeline.n_ch != n:
@@ -523,7 +522,7 @@ def run_fabric_timeline_impl(
     state, chaos = _run_chaos(
         cfg, units, spec, timeline, var, n_points=None, scheme=scheme, warm=warm,
         transactional=transactional, patience=patience, hysteresis=hysteresis,
-        link_chunk=link_chunk or auto_link_chunk(cfg, k))
+        link_chunk=link_chunk or auto_link_chunk(cfg, k), mesh=mesh)
     if health:
         chaos = chaos._replace(health=health_codes(
             chaos.locked, chaos.probes, chaos.feasible, timeline.link_alive, n))

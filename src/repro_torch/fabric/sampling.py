@@ -86,6 +86,19 @@ def _f32(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
+def instantiate_link(
+    cfg: ArbitrationConfig,
+    spec: FabricSpec,
+    units: FabricUnits,
+    variations: Variations | None = None,
+) -> SystemBatch:
+    """One link's unit draws -> a T = 2 ``SystemBatch`` (one trial per end):
+    the reference's one-link form.  ``units`` is a single-link slice with no
+    K axis (``go`` a 0-d tensor, ``llv`` (N,), ``rlv`` (2, N), ...); the
+    result is ``instantiate_links`` on K = 1."""
+    return instantiate_links(cfg, spec, FabricUnits(*(u[None] for u in units)), variations)
+
+
 def instantiate_links(
     cfg: ArbitrationConfig,
     spec: FabricSpec,

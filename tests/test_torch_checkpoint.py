@@ -131,11 +131,29 @@ def test_stray_tmp_step_is_never_a_step():
 
 
 def test_restore_with_shardings_raises():
-    tree = {"w": torch.zeros(2)}
+    """``shardings`` places each leaf (None keeps the target leaf's device)
+    and raises on a tree of another structure."""
+    tree = {"w": torch.arange(2, dtype=torch.float32), "s": (torch.ones(3, dtype=torch.int32),)}
+    on_meta = {"w": tree["w"].to("meta"), "s": (tree["s"][0].to("meta"),)}
     with tempfile.TemporaryDirectory() as d:
         store.save(d, 1, tree)
-        with pytest.raises(NotImplementedError, match="shardings"):
-            store.restore(d, 1, tree, shardings={"w": None})
+        # placements that differ from the target's device: each leaf moves
+        got = store.restore(d, 1, on_meta, shardings={"w": "cpu", "s": (torch.device("cpu"),)})
+        _same(got, tree)
+        got = store.restore(d, 1, tree, shardings={"w": torch.device("meta"), "s": ("meta",)})
+        assert got["w"].device.type == "meta" == got["s"][0].device.type
+        # None keeps the target leaf's device, leaf by leaf
+        got = store.restore(d, 1, on_meta, shardings={"w": "cpu", "s": (None,)})
+        _same(got["w"], tree["w"])
+        assert got["s"][0].device.type == "meta"
+        assert (got["s"][0].shape, got["s"][0].dtype) == (tree["s"][0].shape, torch.int32)
+        got = store.restore(d, 1, tree, shardings={"w": None, "s": ("meta",)})
+        _same(got["w"], tree["w"])
+        assert got["s"][0].device.type == "meta"
+        for bad in ({"w": None}, {"w": None, "s": None}, {"w": None, "s": (None, None)},
+                    {"w": None, "s": [None]}):
+            with pytest.raises(ValueError, match="shardings do not match"):
+                store.restore(d, 1, tree, shardings=bad)
 
 
 @pytest.mark.parametrize("kind", ["tree", "protocol-state"])

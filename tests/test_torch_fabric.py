@@ -371,7 +371,14 @@ def test_state_from_assignment_matches_reference():
 
 
 def test_bringup_mesh_and_default_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from repro_torch.launch import SweepMesh
+
+    want = tfab.bringup(TCFG, tcfab.FABRIC_TINY, link_chunk=2, device="cpu")
+    got = tfab.bringup(TCFG, tcfab.FABRIC_TINY, link_chunk=2, device="cpu",
+                       mesh=SweepMesh(("cpu",) * 2))
+    for f, g, w in zip(want.ev._fields, got.ev, want.ev):
+        assert torch.equal(g, w), f
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         tfab.bringup(TCFG, tcfab.FABRIC_TINY, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -457,7 +464,7 @@ def test_sweep_request_fabric_validation():
     with pytest.raises(ValueError, match="must be in"):
         SweepRequest(scheme="vtrs_ssm", cfg=TCFG, units=units, fabric=spec,
                      axes={"comb_coupling": [1.5]})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         SweepRequest(scheme="vtrs_ssm", mesh=object(), **ok)
     from repro_torch.core.sweep import sweep_reference
 

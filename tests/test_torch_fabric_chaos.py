@@ -206,9 +206,14 @@ def test_link_chunk_invariance(chunk):
 def test_mesh_health_and_mismatch_raise():
     units = tfab.make_fabric_units(CFG, SPEC, 0, device="cpu")
     tl = tfab.make_fabric_timeline(SPEC, 2, N, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         tfab.run_fabric_timeline(CFG, units, SPEC, tl, mesh=object())
     _, cs = tfab.run_fabric_timeline(CFG, units, SPEC, tl, health=True)
+    from repro_torch.launch import SweepMesh
+
+    _, on_mesh = tfab.run_fabric_timeline(CFG, units, SPEC, tl, health=True, link_chunk=1,
+                                          mesh=SweepMesh(("cpu",) * 3))
+    assert torch.equal(on_mesh.health, cs.health) and torch.equal(on_mesh.wl, cs.wl)
     assert cs.health.shape == (2, SPEC.n_links) and cs.health.dtype == torch.int8
     with pytest.raises(ValueError, match="channels|needs"):
         tfab.run_fabric_timeline(CFG, units, SPEC,

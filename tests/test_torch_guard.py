@@ -39,6 +39,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.checkpoint.store, repro_torch.optics\n"
         "import repro_torch.obs, repro_torch.obs.taxonomy, repro_torch.obs.manifest\n"
         "import repro_torch.obs.report, repro_torch.obs.smoke\n"
+        "import repro_torch.launch, repro_torch.launch.mesh, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

@@ -19,6 +19,7 @@ import dataclasses
 import importlib
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -313,12 +314,19 @@ def test_sweep_validation_errors():
 
 
 def test_mesh_and_fabric_are_not_ported_yet():
-    """``mesh=`` is not ported yet.  ``fabric=`` is (tests/test_torch_fabric.py):
-    a fabric request refuses a plain sweep's transceiver units."""
+    """``mesh=`` takes a 1-D ``SweepMesh`` only (tests/test_torch_mesh.py
+    holds mesh sweeps to the unsharded engine): a mesh-like object with two
+    axes gets the reference's ``ValueError``, an object that is no mesh a
+    ``TypeError``.
+    A fabric request refuses a plain sweep's transceiver units."""
     from repro_torch.configs.fabric import FABRIC_TINY
 
     _, _, tcfg, tu = _pair("wdm8-natural", n=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match=r"sweep meshes are 1-D \(the chunk axis\); got axes "
+                                         r"\('data', 'model'\)"):
+        tsw.sweep_policy(tcfg, tu, "ltc", AXES,
+                         mesh=SimpleNamespace(devices=("cpu", "cpu"), axis_names=("data", "model")))
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         tsw.sweep_policy(tcfg, tu, "ltc", AXES, mesh=object())
     with pytest.raises(ValueError, match="fabric sweeps take FabricUnits"):
         tsw.SweepRequest(cfg=tcfg, units=tu, scheme="seq", axes=AXES, fabric=FABRIC_TINY)
