@@ -93,8 +93,14 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             placeholder meshes over cuda:0, each bit for bit against the
             unsharded run; ``restore(shardings=)`` of a CPU-saved campaign
             checkpoint onto the card; the reference's public surface imported
-            from the port, and a deprecated ``sigma_rlv=`` call).  Per-trial
-            results on a 20 x 20 subset (per-link
+            from the port, and a deprecated ``sigma_rlv=`` call); and the LM
+            serving path (``phase_lm``: every smoke config's ``loss_fn``,
+            ``prefill`` and 3 ``decode_step``s card against CPU, and decode
+            against a longer prefill; internlm2-1.8b and mamba2-130m whole and
+            one full-width super-block of qwen3-moe-235b-a22b serving waves
+            of prompts, timed, each super-block and a shallow prefill + decode
+            held against the CPU; it launches none of the five kernels).
+            Per-trial results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -109,8 +115,9 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             issuing each call), and the plain version's time per call.
 
 ``--profile`` runs the build and then, in place of phases 2 to 4, traces
-protocol calls with ``torch.profiler`` to show where their time goes (see
-``phase_profile``); it prints no kernels or result line.
+protocol calls and the LM serving path's prefill and decode with
+``torch.profiler`` to show where their time goes (see ``phase_profile``); it
+prints no kernels or result line.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object of the kernels, and the result line
@@ -210,6 +217,16 @@ SURFACE_FABRIC = (
 MESH_SIZES = (2, 3)                  # placeholder meshes: k x cuda:0
 MESH_LINK_CHUNK = 256                # FABRIC_1K's 1,008 links in 4 chunks
 MESH_CHAOS = ("mid-linkflap", "vtrs_ssm", 24)   # 48 links in 2 chunks of 24
+#: The LM serving cells (``phase_lm``): each arch's request waves as (prompts,
+#: prompt tokens), each prefilled as one batch and decoded greedily, and the
+#: depth its end-to-end card-against-CPU check keeps (None = all; every
+#: super-block is also held on the CPU's input).  qwen3-moe-235b-a22b runs
+#: one super-block at full width (its 94 would take 470 GB of bf16).
+LM_CELLS = (("internlm2-1.8b", None, ((4, 2048), (2, 256)), 32, 2),
+            ("mamba2-130m", None, ((4, 2048), (2, 256)), 32, None),
+            ("qwen3-moe-235b-a22b", 1, ((4, 512),), 8, None))
+LM_TOL = 2e-2                        # card against CPU, rtol and atol
+LM_SPREAD_X = 2.0                    # full width: within 2 x a perturbation's spread
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -2589,6 +2606,290 @@ def phase_obs(seed: int, temporal: dict, chaos: dict) -> dict:
     return launches
 
 
+def _lm_tree(tree, fn):
+    """``fn`` on every tensor of an LM parameter tree or batch."""
+    if isinstance(tree, dict):
+        return {k: _lm_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_lm_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _lm_diff(name, got, want):
+    """max |got - want| of two logit tensors (or lists of them), on the CPU;
+    fails on a shape mismatch or a value that is not finite."""
+    import torch
+
+    if isinstance(got, list):
+        return max(_lm_diff(f"{name} {i}", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    if g.shape != w.shape or not torch.isfinite(g).all() or not torch.isfinite(w).all():
+        fail(f"{name}: {tuple(g.shape)} against {tuple(w.shape)}, or not finite")
+    return float((g - w).abs().max())
+
+
+def _lm_hold(name, got, want, atol=LM_TOL, rtol=LM_TOL):
+    """``got`` within ``atol`` + ``rtol`` x |want| of ``want`` everywhere;
+    returns the max |difference|."""
+    import torch
+
+    err = _lm_diff(name, got, want)
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    bad = int((torch.abs(g - w) > atol + rtol * w.abs()).sum())
+    if bad:
+        fail(f"{name}: {bad} of {g.numel()} values differ by more than {atol!r} + "
+             f"{rtol} x |reference| (max {err!r})")
+    return err
+
+
+def _lm_within_spread(name, err, spread):
+    """A bf16 forward through many layers amplifies rounding: a full-width
+    difference is held to the spread the same computation shows when 1 % of
+    its embedding entries move by about two bf16 ulps (``_lm_perturbed``)."""
+    if not err <= LM_SPREAD_X * spread:
+        fail(f"{name}: max |diff| {err!r} passes {LM_SPREAD_X} x the spread {spread!r} "
+             f"of a bf16-sized perturbation of the input")
+
+
+def _lm_perturbed(params, seed):
+    """``params`` with 1 % of the embedding entries scaled by 1 + 2^-7
+    (about two bf16 ulps), chosen by ``seed``."""
+    import torch
+
+    e = params["embed"]
+    g = torch.Generator(device=e.device).manual_seed(seed)
+    hit = torch.rand(e.shape, generator=g, device=e.device) < 0.01
+    return dict(params, embed=torch.where(hit, e * (1 + 2 ** -7), e))
+
+
+def _lm_run(params, cfg, tokens, max_len, n_decode, feed=None, extra=None):
+    """``prefill`` and ``n_decode`` ``decode_step``s: (each call's logits on
+    the CPU, the tokens fed).  Greedy unless ``feed`` names the tokens."""
+    from repro_torch.models import model as M
+
+    lg, st = M.prefill(params, cfg, tokens, max_len, extra_embeds=extra)
+    out, fed = [lg.float().cpu()], []
+    for i in range(n_decode):
+        nxt = lg.argmax(-1, keepdim=True).cpu() if feed is None else feed[i]
+        fed.append(nxt)
+        lg, st = M.decode_step(params, cfg, st, nxt.to(lg.device))
+        out.append(lg.float().cpu())
+    return out, fed
+
+
+def _lm_gap(params, cfg, tokens, max_len, extra=None):
+    """max |decode step after prefill(tokens[:, :-1]) - prefill(tokens)|,
+    the next-token logits both ways."""
+    from repro_torch.models import model as M
+
+    _, st = M.prefill(params, cfg, tokens[:, :-1], max_len, extra_embeds=extra)
+    dec, _ = M.decode_step(params, cfg, st, tokens[:, -1:])
+    full, _ = M.prefill(params, cfg, tokens, max_len, extra_embeds=extra)
+    return _lm_diff(f"{cfg.name} decode against prefill", dec, full)
+
+
+def _lm_layers(name, cfg, cpu, card, tokens):
+    """Each super-block on the card against the CPU on the same input (the
+    CPU's hidden state), within ``LM_TOL`` x |h| + ``LM_TOL`` x rms(h), and
+    the head (final norm, ``lm_head``) within ``LM_TOL``: no amplification
+    across layers.  Returns the worst block's max |diff| / max |h|."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    h = M.embed_inputs(cpu, cfg, tokens)
+    pos = M._positions(*tokens.shape, "cpu")
+    worst = 0.0
+    for s in range(M._n_super(cpu["blocks"])):
+        hc, _ = M._super_block(h, M._super_params(cpu["blocks"], s), cfg, pos)
+        hg, _ = M._super_block(h.cuda(), M._super_params(card["blocks"], s), cfg, pos.cuda())
+        scale = float(hc.float().pow(2).mean().sqrt())
+        err = _lm_hold(f"{name} super-block {s}", hg, hc, atol=LM_TOL * scale)
+        worst = max(worst, err / float(hc.float().abs().max()))
+        h = hc
+    head_c = (layers.rms_norm(h, cpu["final_norm"]) @ cpu["lm_head"].to(M.COMPUTE)).float()
+    head_g = (layers.rms_norm(h.cuda(), card["final_norm"]) @ card["lm_head"].to(M.COMPUTE))
+    _lm_hold(f"{name} head", head_g.float(), head_c)
+    return worst
+
+
+class _MoEStatsTap:
+    """Records the ``MoEStats`` of every ``layers.moe_ffn`` call while open
+    (the serving path drops them); the numbers are unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.stats, self._orig = [], layers.moe_ffn
+
+        def tapped(*args, **kwargs):
+            y, stats = self._orig(*args, **kwargs)
+            self.stats.append(stats)
+            return y, stats
+
+        layers.moe_ffn = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_ffn = self._orig
+
+
+def phase_lm(seed: int) -> dict:
+    """The LM serving path (``repro_torch.models``) on the card, with the
+    launch counts set to 0 just before and read just after (it runs none of
+    the five kernels: the reference computes its LM with XLA ops).
+
+    1. Each smoke config (``configs.get_smoke``), initialised on the CPU and
+       copied to the card: ``loss_fn`` (B 2, L 32), ``prefill`` (B 2, L 16,
+       ``extra_embeds`` for the frontend arch, max_len L + frontend + 8) and
+       3 ``decode_step``s fed the CPU's greedy tokens, card against the CPU
+       plain path within ``LM_TOL``; decode after prefill against a longer
+       prefill, the card's max gap within ``LM_TOL`` of the CPU's own.
+    2. ``LM_CELLS`` at full width: each wave of prompts prefilled as one
+       batch and decoded greedily, timed on the host clock synchronised on
+       both ends (prefill ms, decode ms per step, tokens/s, peak
+       ``max_memory_allocated`` against the parameter bytes); for a cell
+       without MoE (whose re-prefill would drop other copies) the last
+       decode step against a re-prefill of prompt + generated tokens.  Then
+       card against CPU on the same parameters: every super-block on the
+       CPU's hidden state (``_lm_layers``), and ``prefill`` + 3 decode steps
+       at B 1, L 64 (16 for the MoE cell) at the depth the cell names.
+       Full-width differences are held to the spread of a bf16-sized
+       perturbation (``_lm_within_spread``), measured in the same run.
+    """
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    from repro_torch.models import model as M
+
+    wrappers = reset_launches()
+    t_phase = time.perf_counter()
+    worst = 0.0
+    for arch in ARCH_IDS:
+        cfg = get_smoke(arch)
+        cpu = M.init_params(seed, cfg, device="cpu")
+        card = _lm_tree(cpu, lambda t: t.cuda())
+        gen = torch.Generator().manual_seed(seed + 1)
+        tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+        extra = (torch.randn((2, cfg.frontend_len, cfg.d_model), generator=gen) * 0.02
+                 if cfg.frontend_len else None)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        if extra is not None:
+            batch["extra_embeds"] = extra
+        cl, caux = M.loss_fn(cpu, cfg, batch)
+        gl, gaux = M.loss_fn(card, cfg, _lm_tree(batch, lambda t: t.cuda()))
+        errs = [_lm_hold(f"{arch} loss", gl, cl)] + \
+            [_lm_hold(f"{arch} {k}", gaux[k], caux[k]) for k in ("ce", "aux")]
+        max_len = 16 + cfg.frontend_len + 8
+        want, feed = _lm_run(cpu, cfg, tokens[:, :16], max_len, 3, extra=extra)
+        got, _ = _lm_run(card, cfg, tokens[:, :16].cuda(), max_len, 3, feed,
+                         None if extra is None else extra.cuda())
+        errs += [_lm_hold(f"{arch} prefill and decode {i}", g, w)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        # decode after prefill against a longer prefill: decode and prefill
+        # round differently in bf16 (and a top-1 routing choice can move), so
+        # the card's gap is held to the CPU plain path's own
+        gap, cgap = (_lm_gap(params, cfg, tokens[:1, :17].to(dev), max_len,
+                             None if extra is None else extra[:1].to(dev))
+                     for params, dev in ((card, "cuda"), (cpu, "cpu")))
+        if not gap <= cgap + LM_TOL:
+            fail(f"{arch}: decode against prefill on the card {gap!r} passes the CPU's "
+                 f"{cgap!r} by more than {LM_TOL}")
+        worst = max(worst, *errs)
+        print(f"[lm] {arch} smoke: loss {float(gl)!r} (CPU {float(cl)!r}); card against "
+              f"CPU max |diff| {max(errs)!r} (loss, prefill, 3 decode steps); decode "
+              f"against prefill max |diff| {gap!r} on the card, {cgap!r} on the CPU")
+    print(f"[lm] smoke configs: {time.perf_counter() - t_phase:.1f} s, card against CPU "
+          f"max |diff| {worst!r} (rtol = atol = {LM_TOL})")
+
+    for arch, depth, waves, n_decode, cpu_depth in LM_CELLS:
+        t_cell = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth * len(cfg.pattern))
+        params = M.init_params(seed, cfg)
+        n_bytes = sum(t.numel() * t.element_size() for _, t in M._leaves(params))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        # a short warm-up call (allocator, cuBLAS handles), not timed
+        _lm_run(params, cfg, torch.zeros((1, 16), dtype=torch.int64, device="cuda"), 17, 1)
+        for b, length in waves:
+            prompts = torch.randint(0, cfg.vocab, (b, length), generator=gen, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with _MoEStatsTap() as tap:
+                logits, state = M.prefill(params, cfg, prompts, length + n_decode)
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = []
+            for _ in range(n_decode):
+                out.append(logits.argmax(-1, keepdim=True))
+                logits, state = M.decode_step(params, cfg, state, out[-1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            pre_ms, dec_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / n_decode
+            if tap.stats:      # a re-prefill drops other copies: no consistency check
+                fr = [float(st.dropped_frac) for st in tap.stats]
+                check = f"prefill MoE dropped fraction {fr!r}"
+            else:
+                seq = torch.cat([prompts] + out, dim=1)
+                again, _ = M.prefill(params, cfg, seq, length + n_decode)
+                moved, _ = M.prefill(_lm_perturbed(params, seed + 4), cfg, seq,
+                                     length + n_decode)
+                cons = _lm_diff(f"{arch} {b}x{length} decode against re-prefill", logits, again)
+                spread = _lm_diff(f"{arch} {b}x{length} perturbed re-prefill", moved, again)
+                _lm_within_spread(f"{arch} {b}x{length} decode against re-prefill", cons,
+                                  spread)
+                check = (f"last decode step against a re-prefill of prompt + generated "
+                         f"tokens: max |diff| {cons!r} (perturbed re-prefill {spread!r})")
+                del again, moved
+            print(f"[lm] {arch} {len(cfg.pattern) * M._n_super(params['blocks'])} layers, "
+                  f"{b} x {length} prompts: prefill {pre_ms!r} ms "
+                  f"({b * length / (t1 - t0)!r} tokens/s), decode {dec_ms!r} ms a step "
+                  f"({b * n_decode / (t2 - t1)!r} tokens/s) over {n_decode} steps; peak "
+                  f"{peak} bytes allocated ({peak - base} above the {base} before the wave), "
+                  f"parameters {n_bytes} bytes; {check}")
+            del logits, state, out, prompts
+        # card against CPU on the same parameters
+        cpu = _lm_tree(params, lambda t: t.cpu())
+        length = 16 if cfg.n_experts else 64
+        tokens = torch.randint(0, cfg.vocab, (1, length),
+                               generator=torch.Generator().manual_seed(seed + 3))
+        layer_rel = _lm_layers(arch, cfg, cpu, params, tokens)
+        ccfg, ccpu, ccard = cfg, cpu, params
+        if cpu_depth is not None:
+            ccfg = dataclasses.replace(cfg, n_layers=cpu_depth * len(cfg.pattern))
+            ccpu, ccard = (dict(p, blocks=[{k: v[:cpu_depth] for k, v in blk.items()}
+                                           for blk in p["blocks"]]) for p in (cpu, params))
+        want, feed = _lm_run(ccpu, ccfg, tokens, length + 3, 3)
+        got, _ = _lm_run(ccard, ccfg, tokens.cuda(), length + 3, 3, feed)
+        moved, _ = _lm_run(_lm_perturbed(ccpu, seed + 5), ccfg, tokens, length + 3, 3, feed)
+        err = _lm_diff(f"{arch} card against CPU", got, want)
+        spread = _lm_diff(f"{arch} perturbed CPU", moved, want)
+        _lm_within_spread(f"{arch} card against CPU, {ccfg.n_layers} layers", err, spread)
+        print(f"[lm] {arch} card against CPU: every super-block on the CPU's input within "
+              f"{LM_TOL} (worst max |diff| / max |h| {layer_rel!r}), head within {LM_TOL}; "
+              f"{ccfg.n_layers} layers, B 1, L {length}, prefill and 3 decode steps: max "
+              f"|diff| {err!r}, the CPU's own under a bf16-sized perturbation {spread!r}; "
+              f"cell {time.perf_counter() - t_cell:.1f} s")
+        del params, cpu, ccpu, ccard
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(launches.values()):
+        fail(f"the LM path launched kernels it does not run: {launches}")
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _means(a, places=2):
     """(S, K) per-link stat -> per-step link means, rounded, as fig22 does."""
     import numpy as np
@@ -2772,52 +3073,87 @@ def phase_timing(seed: int) -> dict:
     return rows
 
 
-def phase_profile(seed: int) -> None:
-    """Where a protocol call's time goes (``--profile``): ``evaluate_scheme``
-    for protocol_lta at TR 8.96 and protocol_lta_h1 at fig19's TR 3.436
-    (WDM8 natural, 10,000 trials), each a cold first call and three warm
-    calls untraced, then one warm call traced by ``torch.profiler``.  Prints
-    the kernels' summed device time against the warm wall times (the
-    device's busy share), the kernel launches, and the kernels by device
-    time."""
+def _trace(label: str, call, cold_ms: float, walls: list) -> None:
+    """One more ``call`` traced by ``torch.profiler``: its kernels' summed
+    device time against the untraced warm wall times (the device's busy
+    share), the kernel launches, and the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels, launches = [], 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels.append((e.self_device_time_total, e.count, e.key))
+        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            launches += e.count
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    print(f"[profile] {label}: cold {cold_ms!r} ms, warm {walls!r} ms untraced; device busy "
+          f"{busy_ms!r} ms traced ({100 * busy_ms / max(walls):.2f}-"
+          f"{100 * busy_ms / min(walls):.2f} % of the warm wall times), {launches} kernel "
+          f"launches, {sum(k[1] for k in kernels)} kernels traced")
+    ranked = sorted(kernels, reverse=True)
+    shown = ranked[:8] + [k for k in ranked[8:] if "probe_kernel" in k[2]]
+    for dev_us, count, key in shown:
+        print(f"[profile]   {dev_us / 1e3!r} ms in {count} x {key[:90]}")
+
+
+def phase_profile(seed: int) -> None:
+    """Where the time goes (``--profile``).  ``evaluate_scheme`` for
+    protocol_lta at TR 8.96 and protocol_lta_h1 at fig19's TR 3.436 (WDM8
+    natural, 10,000 trials); then the LM serving path: ``prefill`` of 4
+    prompts and one greedy ``decode_step`` after it, on internlm2-1.8b and
+    mamba2-130m whole (4 x 2,048) and one full-width super-block of
+    qwen3-moe-235b-a22b (4 x 512).  Each a cold first call and three warm
+    calls untraced, then one warm call traced (``_trace``)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
     from repro_torch.configs.wdm import WDM_CONFIGS
     from repro_torch.core import api
+    from repro_torch.models import model as M
 
     cfg = WDM_CONFIGS["wdm8-g200"]
     units = api.make_units(cfg, seed, N_SIDE, N_SIDE)
     for scheme, tr in (("protocol_lta", TR), ("protocol_lta_h1", low_tr())):
         call = lambda: api.evaluate_scheme(cfg, units, scheme, tr)  # noqa: E731
         cold_ms = timed_call(call)[1]
-        walls = [timed_call(call)[1] for _ in range(3)]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels, launches = [], 0
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA"):
-                kernels.append((e.self_device_time_total, e.count, e.key))
-            elif e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
-                launches += e.count
-        busy_ms = sum(k[0] for k in kernels) / 1e3
-        print(f"[profile] evaluate_scheme wdm8-g200/natural {scheme} TR={tr!r}: cold "
-              f"{cold_ms!r} ms, warm {walls!r} ms untraced; device busy {busy_ms!r} ms "
-              f"traced ({100 * busy_ms / max(walls):.2f}-{100 * busy_ms / min(walls):.2f} % "
-              f"of the warm wall times), {launches} kernel launches, "
-              f"{sum(k[1] for k in kernels)} kernels traced")
-        ranked = sorted(kernels, reverse=True)
-        shown = ranked[:8] + [k for k in ranked[8:] if "probe_kernel" in k[2]]
-        for dev_us, count, key in shown:
-            print(f"[profile]   {dev_us / 1e3!r} ms in {count} x {key[:90]}")
+        _trace(f"evaluate_scheme wdm8-g200/natural {scheme} TR={tr!r}", call, cold_ms,
+               [timed_call(call)[1] for _ in range(3)])
+    for arch, depth, waves, n_decode, _ in LM_CELLS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth * len(cfg.pattern))
+        params = M.init_params(seed, cfg)
+        b, length = waves[0]
+        prompts = torch.randint(0, cfg.vocab, (b, length), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(seed))
+        logits, state = M.prefill(params, cfg, prompts, length + n_decode)
+        nxt = logits.argmax(-1, keepdim=True)
+        for what, call in (
+                (f"prefill {b} x {length}",
+                 lambda: M.prefill(params, cfg, prompts, length + n_decode)),
+                (f"decode_step at {length}, B {b}",
+                 lambda: M.decode_step(params, cfg, state, nxt))):
+            cold_ms = timed_call(call)[1]
+            _trace(f"{arch} {cfg.n_layers} layers {what}", call, cold_ms,
+                   [timed_call(call)[1] for _ in range(3)])
+        del params, prompts, logits, state, nxt
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
-                        help="build, then trace protocol calls (no checks, no result line)")
+                        help="build, then trace protocol and LM calls (no checks, no "
+                             "result line)")
     args = parser.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2858,13 +3194,14 @@ def main() -> int:
                         ("campaign", lambda seed: phase_campaign(seed, temporal_runs)),
                         ("mesh", lambda seed: phase_mesh(seed, sweep_runs, fabric_runs,
                                                          chaos_runs)),
-                        ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs))):
+                        ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs)),
+                        ("lm", phase_lm)):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
-          f"interconnect, campaign, mesh and obs paths: {launches}")
+          f"interconnect, campaign, mesh, obs and LM paths: {launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")

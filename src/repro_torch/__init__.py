@@ -11,7 +11,10 @@ plain PyTorch versions run for CPU tensors.  The protocol engine
 re-arbitration (``core.temporal.run_timeline``); ``fabric`` composes
 per-link arbitration into fabrics of links, with chaos timelines of faults;
 ``obs`` instruments them (flight recorder, health matrix, phase telemetry,
-failure taxonomy, run manifests), off by default.
+failure taxonomy, run manifests), off by default.  ``models`` is the LM
+stack's serving half (layers, ``prefill``, ``decode_step``, the forward
+``loss_fn``) with its configs in ``configs.archs``; it runs on plain
+PyTorch ops, none of the kernels.
 """
 
 # The core package first: its sweep exports import the kernel wrappers, and

@@ -2,10 +2,11 @@
 
 The parity tests can hand the reference's unit samples (the port also draws
 them itself: ``core.prng``), search tables, protocol states, flight-recorder
-buffers, timelines, fabric units, fabric timelines and the interconnect's
-live fabric states to both packages as the same numpy arrays, so that
-arbiters, warm starts, traces, timelines and warm repairs are compared on
-identical inputs.
+buffers, timelines, fabric units, fabric timelines, the interconnect's
+live fabric states, and the LM's parameter trees and decode states to both
+packages as the same numpy arrays, so that arbiters, warm starts, traces,
+timelines, warm repairs and the LM's layers are compared on identical
+inputs.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .core.temporal import Timeline
 from .fabric.chaos import FabricTimeline
 from .fabric.sampling import FabricUnits
 from .fabric.spec import FabricSpec
+from .models.model import DecodeState
 from .obs.trace import TraceBuffer
 from .optics.interconnect import FabricHandle, FabricState, LinkHealth
 
@@ -133,3 +135,36 @@ def fabric_state_from_fields(links: Sequence[Mapping], scheme: str, tr_mean: flo
     )
     return FabricState(links=[LinkHealth(**dict(l)) for l in links], scheme=scheme,
                        tr_mean=tr_mean, handle=handle)
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    """One array as a tensor on ``dev``, bit for bit.  A bf16 array (JAX's
+    ``ml_dtypes`` bfloat16, which ``torch.from_numpy`` rejects) is carried
+    as its 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.tensor(a).to(dev)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The LM's parameter tree (``models.model``'s layout) from the
+    reference's as numpy (``jax.tree.map(np.asarray, params)``): the same
+    dicts and lists, each leaf bit for bit in its dtype."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return _tensor_from_numpy(t, dev)
+
+    return walk(tree)
+
+
+def decode_state_from_numpy(caches: Sequence[Mapping], pos, device=None) -> DecodeState:
+    """``DecodeState`` from the reference's (caches, pos): each cache dict's
+    arrays bit for bit, the position as a host int."""
+    return DecodeState(caches=tuple(lm_params_from_numpy(list(caches), device)),
+                       pos=int(pos))

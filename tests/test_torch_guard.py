@@ -40,6 +40,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.obs, repro_torch.obs.taxonomy, repro_torch.obs.manifest\n"
         "import repro_torch.obs.report, repro_torch.obs.smoke\n"
         "import repro_torch.launch, repro_torch.launch.mesh, repro_torch.configs\n"
+        "import repro_torch.models.model, repro_torch.configs.archs, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -67,6 +68,38 @@ def test_default_device_raises_without_cuda(monkeypatch):
         units_from_numpy(*arrays)
     units = api.make_units(WDM8_G200, 0, 2, 2, device="cpu")
     assert all(u.device.type == "cpu" for u in units)
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import model
+
+    cfg = get_smoke("mamba2-130m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_decode_state(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    params = model.init_params(0, cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert lm_params_from_numpy({"a": [np.ones(2)]}, "cpu")["a"][0].device.type == "cpu"
+
+
+def test_moe_a2a_waits_for_the_distribution_slice():
+    """``moe_impl="a2a"`` (the reference's shard_map all-to-all dispatch)
+    raises, naming its slice, where a MoE layer runs; it never falls back."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers, model
+
+    assert not hasattr(layers, "moe_ffn_a2a")
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"), moe_impl="a2a")
+    params = model.init_params(0, cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        model.prefill(params, cfg, tokens, 8)
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        model.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
 
 
 def test_runtime_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -68,11 +68,10 @@ EXEMPT = {
     "kernels.feasibility": {"TRIAL_BLOCK", "feasibility_pallas"},
     "kernels.probe": {"research_pallas"},
     "kernels.table_build": {"BIG", "TRIAL_BLOCK", "table_pallas"},
-    # Until ROADMAP queue 1 item 4: the LM registry of the LM-era scaffolding.
-    "configs": {"ALL", "REGISTRY", "ARCH_IDS", "get_config", "get_smoke", "SHAPES",
-                "SHAPES_BY_NAME", "ShapeCell", "applicable", "archs", "microbatches_for",
-                "smoke_variant"},
-    # Until ROADMAP queue 1 item 4: the 2-D meshes of the LM-era scaffolding.
+    # Until the distribution slice: an all-to-all MoE dispatch over a device
+    # mesh (moe_impl="a2a" raises NotImplementedError naming that slice).
+    "models.layers": {"moe_ffn_a2a"},
+    # Until ROADMAP queue 1 item 5 (distribution): the 2-D meshes of the LM-era scaffolding.
     "launch.mesh": {"make_production_mesh", "make_host_mesh", "data_axes"},
 }
 
@@ -115,7 +114,9 @@ COUNTERPARTS = {_module_name(p.relative_to(REF)): p for p in sorted(REF.rglob("*
 
 def test_counterparts_cover_the_ported_layers():
     for mod in ("core", "core.api", "core.sweep", "configs", "fabric", "fabric.sampling",
-                "launch.mesh", "checkpoint.store", "obs.phase", "optics.interconnect"):
+                "launch.mesh", "checkpoint.store", "obs.phase", "optics.interconnect",
+                "models.config", "models.layers", "models.model", "configs.archs",
+                "configs.shapes", "launch.serve"):
         assert mod in COUNTERPARTS, mod
     assert set(EXEMPT) | set(EXTRA) <= set(COUNTERPARTS)
 
