@@ -99,8 +99,14 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             against a longer prefill; internlm2-1.8b and mamba2-130m whole and
             one full-width super-block of qwen3-moe-235b-a22b serving waves
             of prompts, timed, each super-block and a shallow prefill + decode
-            held against the CPU; it launches none of the five kernels).
-            Per-trial results on a 20 x 20 subset (per-link
+            held against the CPU; it launches none of the five kernels); and
+            the training path (``phase_train``: every smoke config's
+            gradients and a 2-microbatch ``make_train_step`` card against
+            CPU, internlm2-1.8b whole for 4 ``Trainer`` steps with the
+            fabric's bring-up and repairs on the kernels, a depth-2
+            full-width step against the CPU, a mamba2-130m run split by a
+            checkpoint and resumed, a qwen3-moe-235b-a22b super-block with
+            bf16 moments).  Per-trial results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -115,9 +121,9 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             issuing each call), and the plain version's time per call.
 
 ``--profile`` runs the build and then, in place of phases 2 to 4, traces
-protocol calls and the LM serving path's prefill and decode with
-``torch.profiler`` to show where their time goes (see ``phase_profile``); it
-prints no kernels or result line.
+protocol calls, the LM serving path's prefill and decode and one train step
+with ``torch.profiler`` to show where their time goes (see
+``phase_profile``); it prints no kernels or result line.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object of the kernels, and the result line
@@ -129,6 +135,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2890,6 +2897,368 @@ def phase_lm(seed: int) -> dict:
     return launches
 
 
+#: The training phase (``phase_train``): smoke steps at (B, L); internlm2-1.8b
+#: whole through the Trainer as ``launch/train.py --production`` wires it
+#: (seq 2,048, global batch 4, 2 microbatches, 4 steps, a link failure drawn
+#: with probability 0.5 a step); the depth-2 full-width card-against-CPU
+#: step at (1, 64); mamba2-130m whole for the resume (B 4, L 1,024, 3 steps,
+#: split after 2); one full-width qwen3-moe-235b-a22b super-block, 2 steps
+#: at (4, 512).
+TRAIN_SMOKE_BATCH = (4, 32)
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 4, 2048, 4
+#: The internlm2 Trainer's seed (its fabric draws, parameters and link
+#: events): its bring-up meets a link with two rings on one line
+#: (``dup_lock``), which the warm repair relocks through protocol rounds,
+#: launching ``probe``.  At TR 8.96 the 8 links come up whole at seeds 0-157,
+#: and a link event changes only the health record (as in the reference),
+#: so its repair finds every lock valid and runs no protocol round.
+TRAIN_FABRIC_SEED = 158
+TRAIN_RESUME = ("mamba2-130m", 4, 1024, 3, 2)
+TRAIN_MOE = ("qwen3-moe-235b-a22b", 4, 512, 2)
+#: Card against CPU in a train step: each gradient leaf and first moment
+#: within 8 % of the leaf's max |value| (16 % for the second moment, a
+#: square; each updated parameter within 2 lr): both run the backward in bf16, whose rounding
+#: (2^-8 a product input) the two devices' GEMMs accumulate in other orders;
+#: the port against the reference on the CPU shows up to 7.0 % (mamba2's
+#: SSD, ``tests/test_torch_train.py``).
+TRAIN_GRAD_TOL = 0.08
+#: The resumed run's last loss against the uninterrupted run's: the
+#: embedding backward accumulates with atomics on CUDA (``index_put_``), so
+#: the two runs' step-2 parameters may differ in the last bits (deterministic
+#: algorithms are left off, as a user runs).
+TRAIN_RESUME_TOL = 1e-2
+#: H100 SXM data sheet: bf16 dense tensor-core rate.
+PEAK_BF16_PER_S = 989e12
+
+
+def _train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward + backward, no recompute):
+    6 x the parameters that multiply (all but the embedding table) x
+    tokens, plus the attention products, 12 x layers x heads x head_dim x
+    seq x tokens (scores and values, forward and backward, every tile)."""
+    from repro_torch.models import model as M
+
+    n = M.count_params(cfg, active_only=True) - cfg.vocab * cfg.d_model
+    n_attn = sum(1 for b in cfg.pattern if b.mixer == "attn") * cfg.n_super
+    return 6.0 * n * tokens + 12.0 * n_attn * cfg.n_heads * cfg.head_dim * seq * tokens
+
+
+def _grads(params, cfg, batch):
+    """(loss, gradient leaves) of ``loss_fn`` on ``batch``, in
+    ``tree_leaves`` order."""
+    import torch
+
+    from repro_torch.distributed.steps import _grad_tree
+    from repro_torch.models import model as M
+
+    tree, leaves = _grad_tree(params)
+    with torch.enable_grad():
+        loss, _ = M.loss_fn(tree, cfg, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _train_hold(name, got, want, tol, atol=0.0):
+    """Each leaf of ``got`` within ``tol`` x the max |value| of ``want``'s
+    leaf + ``atol``; returns the worst leaf's max |diff| over its bound."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = _lm_diff(f"{name} leaf {i}", g, w)
+        bound = tol * (float(w.detach().float().abs().max()) or 1.0) + atol
+        if not err <= bound:
+            fail(f"{name} leaf {i} {tuple(w.shape)}: max |diff| {err!r} passes its bound "
+                 f"{bound!r} ({tol} x max |value| + {atol!r})")
+        worst = max(worst, err / bound)
+    return worst
+
+
+def _train_step_once(params, cfg, opt_cfg, batch):
+    """One train step at one microbatch (``make_train_step``'s body), with
+    its gradients kept: (loss, grads, params, OptState), all updated in
+    place."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_unflatten
+
+    opt = adamw.init(opt_cfg, params)
+    loss, grads = _grads(params, cfg, batch)
+    adamw.apply(opt_cfg, params, tree_unflatten(params, grads), opt)
+    return loss, grads, params, opt
+
+
+def phase_train(seed: int) -> dict:
+    """The training path (``repro_torch.optim``, ``distributed.steps``,
+    ``data.pipeline``, ``runtime.trainer``) on the card, with the launch
+    counts set to 0 just before and read just after: the trainer's fabric
+    bring-up and link repairs launch ``feasibility``, ``table_build`` and
+    ``probe``.
+
+    1. Each smoke config, initialised on the CPU and copied to the card: the
+       loss and every gradient leaf of ``loss_fn`` at ``TRAIN_SMOKE_BATCH``,
+       then one ``make_train_step(n_microbatch=2)``: loss within ``LM_TOL``,
+       gradients and moments within ``TRAIN_GRAD_TOL`` of each leaf's max
+       (twice it for the second moment), updated parameters within 2 lr,
+       card against the CPU plain path.
+    2. internlm2-1.8b whole (fp32 parameters and moments, ``remat="full"``)
+       through ``Trainer`` as ``launch/train.py --production`` wires it:
+       ``bringup_fabric`` (2 pods, 8 links, seed ``TRAIN_FABRIC_SEED``),
+       ``TokenPipeline``, 4 steps of
+       2 microbatches, a link failure with probability 0.5 a step, no
+       checkpoint.  Per step: s/step, tokens/s, grad_norm, loss; the peak
+       ``max_memory_allocated`` against the state's bytes, the model FLOPs
+       a step (``_train_flops``) and their share of the bf16 dense peak.
+    3. internlm2 at depth 2 (full width), B 1, L 64: one train step card
+       against CPU on the same parameters and batch: the loss within
+       ``LM_TOL``, gradients and updated parameters within ``LM_SPREAD_X`` x
+       the spread of a bf16-sized perturbation (``_lm_perturbed``) measured
+       in the same run.
+    4. mamba2-130m whole: 3 steps in one Trainer run; then 2 steps, a save,
+       a new Trainer whose ``init_state`` resumes at step 2 (params and
+       optimizer state bit for bit), and 1 more step, the last loss within
+       ``TRAIN_RESUME_TOL`` of the uninterrupted run's.
+    5. One full-width qwen3-moe-235b-a22b super-block (bf16 parameters,
+       moments and accumulation; the MoE backward through ``index_copy_``):
+       2 steps, finite losses, bf16 moments.
+    """
+    import dataclasses
+    import gc
+    import itertools
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    wrappers = reset_launches()
+    t_phase = time.perf_counter()
+    opt_smoke = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=1, decay_steps=10)
+    worst = 0.0
+    for arch in ARCH_IDS:
+        cfg = get_smoke(arch)
+        cpu = M.init_params(seed, cfg, device="cpu")
+        card = _lm_tree(cpu, lambda t: t.cuda())
+        gen = torch.Generator().manual_seed(seed + 1)
+        b, length = TRAIN_SMOKE_BATCH
+        tokens = torch.randint(0, cfg.vocab, (b, length), generator=gen)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        if cfg.frontend_len:
+            batch["extra_embeds"] = torch.randn((b, cfg.frontend_len, cfg.d_model),
+                                                generator=gen) * 0.02
+        on_card = _lm_tree(batch, lambda t: t.cuda())
+        (cl, cg), (gl, gg) = _grads(cpu, cfg, batch), _grads(card, cfg, on_card)
+        _lm_hold(f"{arch} train loss", gl, cl)
+        errs = [_train_hold(f"{arch} gradient", gg, cg, TRAIN_GRAD_TOL)]
+        step = steps.make_train_step(cfg, opt_smoke, 2)
+        copt, gopt = adamw.init(opt_smoke, cpu), adamw.init(opt_smoke, card)
+        _, _, cm = step(cpu, copt, batch)
+        _, _, gm = step(card, gopt, on_card)
+        _lm_hold(f"{arch} train step loss", gm["loss"], cm["loss"])
+        # a first Adam step moves each entry by lr x the sign of its gradient:
+        # where the two gradients differ in sign, the entries differ by 2 lr
+        lr = float(cm["lr"])
+        errs += [_train_hold(f"{arch} {what}", tree_leaves(g), tree_leaves(c), tol, atol)
+                 for what, g, c, tol, atol in (
+                     ("updated parameter", card, cpu, 0.0, 2 * lr + 1e-6),
+                     ("first moment", gopt.mu, copt.mu, TRAIN_GRAD_TOL, 0.0),
+                     ("second moment", gopt.nu, copt.nu, 2 * TRAIN_GRAD_TOL, 0.0))]
+        worst = max(worst, *errs)
+        print(f"[train] {arch} smoke: loss {float(gl)!r} (CPU {float(cl)!r}); train step "
+              f"loss {float(gm['loss'])!r} (CPU {float(cm['loss'])!r}), grad_norm "
+              f"{float(gm['grad_norm'])!r} (CPU {float(cm['grad_norm'])!r}); worst leaf's "
+              f"max |diff| over its bound: gradients {errs[0]!r}, updated parameters "
+              f"{errs[1]!r}, moments {errs[2]!r} / {errs[3]!r}")
+    print(f"[train] smoke configs: {time.perf_counter() - t_phase:.1f} s, worst leaf's max "
+          f"|diff| over its bound {worst!r}")
+
+    # 2. internlm2-1.8b whole through the Trainer
+    t_cell = time.perf_counter()
+    cfg = get_config("internlm2-1.8b")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=max(TRAIN_STEPS // 10, 1), decay_steps=TRAIN_STEPS,
+                                moment_dtype=cfg.moment_dtype)
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=d,
+                             log_every=1, link_failure_prob_per_step=0.5,
+                             seed=TRAIN_FABRIC_SEED)
+        trainer = Trainer(cfg, tcfg, opt_cfg, "cuda", steps.make_train_step(cfg, opt_cfg, 2),
+                          None, None)
+        t0 = time.perf_counter()
+        fabric = trainer.bringup_fabric()
+        bring_ms = (time.perf_counter() - t0) * 1e3
+        bring_rounds = trainer.rearb_rounds
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+        try:
+            t0 = time.perf_counter()
+            batches = iter(data)
+            first = next(batches)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = trainer.init_state()
+            state = trainer.fit(state, itertools.chain([first], batches))
+            torch.cuda.synchronize()
+        finally:
+            data.close()
+        peak = torch.cuda.max_memory_allocated()
+        if any(p.name.startswith("step_") for p in Path(d).iterdir()):
+            fail("internlm2-1.8b: the Trainer wrote a checkpoint it was not asked for")
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params))
+    m_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state.opt_state.mu) + tree_leaves(state.opt_state.nu))
+    a_bytes = sum(t.numel() * torch.finfo(getattr(torch, cfg.accum_dtype)).bits // 8
+                  for t in tree_leaves(state.params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens, TRAIN_SEQ)
+    losses = [m["loss"] for m in trainer.metrics_log]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"internlm2-1.8b training losses {losses!r}")
+    if len(fabric.links) != 8 or not 0.0 < trainer.fabric.bandwidth_fraction <= 1.0:
+        fail(f"internlm2-1.8b: fabric of {len(fabric.links)} links at bandwidth fraction "
+             f"{trainer.fabric.bandwidth_fraction!r}")
+    print(f"[train] internlm2-1.8b {cfg.n_layers} layers, Trainer seed {TRAIN_FABRIC_SEED}: "
+          f"fabric bring-up {bring_ms!r} ms ({len(fabric.links)} links, {bring_rounds} repair "
+          f"rounds, bandwidth fraction {fabric.bandwidth_fraction!r}); "
+          f"first batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens {first_ms!r} ms")
+    for m in trainer.metrics_log:
+        print(f"[train] internlm2-1.8b step {m['step']}: {m['sec_per_step']!r} s/step, "
+              f"{tokens / m['sec_per_step']!r} tokens/s, grad_norm {m['grad_norm']!r}, "
+              f"loss {m['loss']!r}, {100 * flops / m['sec_per_step'] / PEAK_BF16_PER_S!r} % of "
+              f"the bf16 dense peak")
+    print(f"[train] internlm2-1.8b: peak {peak} bytes allocated; parameters {p_bytes} + "
+          f"moments {m_bytes} = {p_bytes + m_bytes} bytes of state, + the accumulator and "
+          f"one microbatch's gradients {2 * a_bytes} = {p_bytes + m_bytes + 2 * a_bytes}; "
+          f"model FLOPs a step {flops!r}; link events: {trainer.rearb_rounds} repair rounds, "
+          f"{trainer.straggler_events} straggler steps; cell "
+          f"{time.perf_counter() - t_cell:.1f} s")
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. depth 2 at full width, card against CPU
+    t_cell = time.perf_counter()
+    cfg2 = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2)
+    card = M.init_params(seed, cfg2)
+    cpu = _lm_tree(card, lambda t: t.cpu())
+    moved = _lm_tree(_lm_perturbed(card, seed + 5), lambda t: t.cpu())
+    tokens = torch.randint(0, cfg2.vocab, (1, 64), generator=torch.Generator().manual_seed(seed))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    gl, gg, gp, _ = _train_step_once(card, cfg2, opt_cfg, _lm_tree(batch, lambda t: t.cuda()))
+    t_cpu = time.perf_counter()
+    cl, cg, cp, _ = _train_step_once(cpu, cfg2, opt_cfg, batch)
+    ml, mg, mp, _ = _train_step_once(moved, cfg2, opt_cfg, batch)
+    t_cpu = time.perf_counter() - t_cpu
+    rel = lambda got, want: max(_lm_diff("depth 2", g, w) / (float(w.abs().max()) or 1.0)  # noqa: E731
+                                for g, w in zip(got, want))
+    # the loss, a mean over 64 positions, averages a perturbation's effects
+    # out: it is held within LM_TOL, as the smoke configs' losses are
+    _lm_hold("internlm2-1.8b depth 2 train step loss", gl, cl)
+    checks = (("gradients", rel(gg, cg), rel(mg, cg)),
+              ("updated parameters", rel(tree_leaves(gp), tree_leaves(cp)),
+               rel(tree_leaves(mp), tree_leaves(cp))))
+    for what, err, spread in checks:
+        _lm_within_spread(f"internlm2-1.8b depth 2 train step {what}", err, spread)
+    print(f"[train] internlm2-1.8b 2 layers, B 1, L 64, one train step card against CPU: "
+          f"loss {float(gl)!r} (CPU {float(cl)!r}, perturbed {float(ml)!r}); " +
+          "; ".join(f"{what} {err!r} (the CPU's own under a bf16-sized perturbation "
+                    f"{spread!r})" for what, err, spread in checks) +
+          f" (worst leaf's max |diff| / max |value|); the two CPU steps {t_cpu:.1f} s; "
+          f"cell {time.perf_counter() - t_cell:.1f} s")
+    del cpu, moved, card, gg, gp, cg, cp, mg, mp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. mamba2-130m whole: resume from a checkpoint
+    t_cell = time.perf_counter()
+    arch, b, length, n_steps, split = TRAIN_RESUME
+    cfg = get_config(arch)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=n_steps, moment_dtype=cfg.moment_dtype)
+
+    def run(d, total, state=None, skip=0):
+        tcfg = TrainerConfig(total_steps=total, ckpt_every=split, ckpt_dir=d, log_every=1,
+                             seed=seed)
+        tr = Trainer(cfg, tcfg, opt_cfg, "cuda", steps.make_train_step(cfg, opt_cfg, 2), None,
+                     None)
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=length, global_batch=b,
+                                        seed=seed))
+        try:
+            batches = iter(data)
+            for _ in range(skip):
+                next(batches)
+            state = tr.fit(tr.init_state() if state is None else state, batches)
+        finally:
+            data.close()
+        return tr, state
+
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        whole, _ = run(d1, n_steps)
+        head, saved = run(d2, split)
+        t0 = time.perf_counter()
+        resumed = Trainer(cfg, TrainerConfig(ckpt_dir=d2), opt_cfg, "cuda", None).init_state()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if resumed.step != split:
+            fail(f"{arch}: resumed at step {resumed.step}, not {split}")
+        for what, got, want in (("parameters", resumed.params, saved.params),
+                                ("optimizer state", resumed.opt_state, saved.opt_state)):
+            for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                if g.device != w.device or g.dtype != w.dtype or not torch.equal(g, w):
+                    fail(f"{arch}: restored {what} differ from the saved ones")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d2).rglob("*.npz"))
+        del saved
+        tail, _ = run(d2, n_steps, resumed, skip=split)
+    want, got = whole.metrics_log[-1]["loss"], tail.metrics_log[-1]["loss"]
+    if not abs(got - want) <= TRAIN_RESUME_TOL:
+        fail(f"{arch}: resumed step {n_steps} loss {got!r} against {want!r} uninterrupted")
+    print(f"[train] {arch} {cfg.n_layers} layers, {b} x {length}: uninterrupted losses "
+          f"{[m['loss'] for m in whole.metrics_log]!r}; split at {split}: losses "
+          f"{[m['loss'] for m in head.metrics_log + tail.metrics_log]!r}, resumed last loss "
+          f"within {abs(got - want)!r} (bound {TRAIN_RESUME_TOL}); checkpoint {ckpt_bytes} "
+          f"bytes, restored bit for bit in {restore_ms!r} ms; s/step "
+          f"{[m['sec_per_step'] for m in whole.metrics_log]!r}; cell "
+          f"{time.perf_counter() - t_cell:.1f} s")
+    del whole, head, tail, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. one full-width qwen3-moe super-block, bf16 moments
+    t_cell = time.perf_counter()
+    arch, b, length, n_steps = TRAIN_MOE
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=n_steps, moment_dtype=cfg.moment_dtype)
+    params = M.init_params(seed, cfg)
+    opt = adamw.init(opt_cfg, params)
+    step = steps.make_train_step(cfg, opt_cfg, 2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(n_steps):
+        tokens = torch.randint(0, cfg.vocab, (b, length), generator=gen, device="cuda")
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)})
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0, float(m["loss"]), float(m["grad_norm"])))
+    dts = {t.dtype for t in tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu)}
+    if dts != {torch.bfloat16} or not all(math.isfinite(v) for _, l, g in out for v in (l, g)):
+        fail(f"{arch} super-block: dtypes {dts}, steps {out!r}")
+    print(f"[train] {arch} 1 of 94 super-blocks, {b} x {length}, bf16 parameters, moments "
+          f"and accumulation: (s/step, loss, grad_norm) {out!r}; peak "
+          f"{torch.cuda.max_memory_allocated()} bytes; cell {time.perf_counter() - t_cell:.1f} s")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {k: w.launches for k, w in wrappers.items()}
+    missed = [k for k in ("feasibility", "table_build", "probe") if not launches[k]]
+    if missed:
+        fail(f"the training path launched no {missed}: {launches}")
+    print(f"[train] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _means(a, places=2):
     """(S, K) per-link stat -> per-step link means, rounded, as fig22 does."""
     import numpy as np
@@ -3106,8 +3475,10 @@ def phase_profile(seed: int) -> None:
     natural, 10,000 trials); then the LM serving path: ``prefill`` of 4
     prompts and one greedy ``decode_step`` after it, on internlm2-1.8b and
     mamba2-130m whole (4 x 2,048) and one full-width super-block of
-    qwen3-moe-235b-a22b (4 x 512).  Each a cold first call and three warm
-    calls untraced, then one warm call traced (``_trace``)."""
+    qwen3-moe-235b-a22b (4 x 512); then one ``make_train_step`` of
+    internlm2-1.8b whole (4 x 2,048, 2 microbatches).  Each a cold first
+    call and three warm calls untraced, then one warm call traced
+    (``_trace``)."""
     import dataclasses
     import gc
 
@@ -3146,6 +3517,22 @@ def phase_profile(seed: int) -> None:
         del params, prompts, logits, state, nxt
         gc.collect()
         torch.cuda.empty_cache()
+    # one train step of internlm2-1.8b whole, as phase_train's Trainer runs it
+    from repro_torch.distributed import steps
+    from repro_torch.optim import adamw
+
+    cfg = get_config("internlm2-1.8b")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=10, moment_dtype=cfg.moment_dtype)
+    params = M.init_params(seed, cfg)
+    opt = adamw.init(opt_cfg, params)
+    step = steps.make_train_step(cfg, opt_cfg, 2)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    call = lambda: step(params, opt, batch)  # noqa: E731
+    cold_ms = timed_call(call)[1]
+    _trace(f"internlm2-1.8b {cfg.n_layers} layers train_step {TRAIN_BATCH} x {TRAIN_SEQ}, "
+           f"2 microbatches", call, cold_ms, [timed_call(call)[1] for _ in range(3)])
 
 
 def main() -> int:
@@ -3195,13 +3582,13 @@ def main() -> int:
                         ("mesh", lambda seed: phase_mesh(seed, sweep_runs, fabric_runs,
                                                          chaos_runs)),
                         ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs)),
-                        ("lm", phase_lm)):
+                        ("lm", phase_lm), ("train", phase_train)):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
-          f"interconnect, campaign, mesh, obs and LM paths: {launches}")
+          f"interconnect, campaign, mesh, obs, LM and training paths: {launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")

@@ -12,9 +12,11 @@ re-arbitration (``core.temporal.run_timeline``); ``fabric`` composes
 per-link arbitration into fabrics of links, with chaos timelines of faults;
 ``obs`` instruments them (flight recorder, health matrix, phase telemetry,
 failure taxonomy, run manifests), off by default.  ``models`` is the LM
-stack's serving half (layers, ``prefill``, ``decode_step``, the forward
-``loss_fn``) with its configs in ``configs.archs``; it runs on plain
-PyTorch ops, none of the kernels.
+stack (layers, ``prefill``, ``decode_step``, ``loss_fn`` and its backward
+with remat) with its configs in ``configs.archs``; ``optim``,
+``distributed.steps``, ``data`` and ``runtime.trainer`` train it
+(``launch.train``).  The LM runs on plain PyTorch ops; the trainer's
+optical-fabric bring-up and repairs run the kernels.
 """
 
 # The core package first: its sweep exports import the kernel wrappers, and

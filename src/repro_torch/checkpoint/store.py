@@ -96,9 +96,20 @@ def _flat(tree) -> Dict[str, Any]:
 
 
 def _host_array(leaf) -> np.ndarray:
+    """A leaf as numpy; a bf16 tensor as its 16-bit patterns (``|V2``, the
+    bytes the reference's ``ml_dtypes`` bfloat16 arrays are saved as)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(leaf, arr: np.ndarray) -> str:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(arr.dtype)
 
 
 def save(ckpt_dir: str | Path, step: int, tree, *, host_id: int = 0,
@@ -119,7 +130,7 @@ def save(ckpt_dir: str | Path, step: int, tree, *, host_id: int = 0,
             "key": key,
             "slice": None,
             "global_shape": list(arr.shape),
-            "dtype": str(arr.dtype),
+            "dtype": _dtype_name(leaf, arr),
         }
     np.savez(tmp / f"host_{host_id}.npz", **arrays)
     (tmp / f"index_{host_id}.json").write_text(json.dumps(index))
@@ -144,8 +155,10 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
     """Rebuild ``target_tree``'s structure from the checkpoint of ``step``.
 
-    Each leaf keeps the checkpoint's dtype and goes to the device of the
-    target's leaf (the CPU where the target's leaf is not a tensor).
+    Each leaf keeps the checkpoint's dtype (bfloat16 too, which the
+    reference saves as 16-bit patterns) and goes to the device of the
+    target's leaf (the CPU where the target's leaf is not a tensor or is a
+    ``device="meta"`` one, as ``models.model.param_shapes`` makes).
     ``shardings``, a tree of the target's structure whose leaves are
     ``torch.device``s, device strings or None, places each restored leaf on
     its device instead (None keeps the target leaf's); a tree of another
@@ -163,21 +176,29 @@ def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
 
     # assemble per-key global arrays (the reference's shards by slice)
     globals_: Dict[str, np.ndarray] = {}
+    bf16 = set()
     for k, info in index.items():
         key = info["key"]
+        arr = arrays[k]
+        if info["dtype"] == "bfloat16":   # numpy has no bfloat16: its bit patterns
+            bf16.add(key)
+            arr = arr.view(np.int16)
         if key not in globals_:
-            globals_[key] = np.zeros(info["global_shape"], dtype=np.dtype(info["dtype"]))
+            dt = np.int16 if key in bf16 else np.dtype(info["dtype"])
+            globals_[key] = np.zeros(info["global_shape"], dtype=dt)
         if info["slice"] is None:
-            globals_[key] = arrays[k]
+            globals_[key] = arr
         else:
             sl = tuple(slice(a, b, c) for a, b, c in info["slice"])
-            globals_[key][sl] = arrays[k]
+            globals_[key][sl] = arr
 
     def leaf(key, target):
         dev = placement.get(key)
         if dev is None:
-            dev = target.device if isinstance(target, torch.Tensor) else "cpu"
-        return torch.as_tensor(globals_[key], device=torch.device(dev))
+            on_target = isinstance(target, torch.Tensor) and target.device.type != "meta"
+            dev = target.device if on_target else "cpu"
+        t = torch.as_tensor(globals_[key], device=torch.device(dev))
+        return t.view(torch.bfloat16) if key in bf16 else t
 
     return _map_with_path(leaf, target_tree)
 

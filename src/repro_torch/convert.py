@@ -3,8 +3,9 @@
 The parity tests can hand the reference's unit samples (the port also draws
 them itself: ``core.prng``), search tables, protocol states, flight-recorder
 buffers, timelines, fabric units, fabric timelines, the interconnect's
-live fabric states, and the LM's parameter trees and decode states to both
-packages as the same numpy arrays, so that arbiters, warm starts, traces,
+live fabric states, the LM's parameter trees and decode states, and the
+optimizer's and gradient compression's states to both packages as the same
+numpy arrays, so that arbiters, warm starts, traces,
 timelines, warm repairs and the LM's layers are compared on identical
 inputs.
 """
@@ -26,6 +27,8 @@ from .fabric.spec import FabricSpec
 from .models.model import DecodeState
 from .obs.trace import TraceBuffer
 from .optics.interconnect import FabricHandle, FabricState, LinkHealth
+from .optim.adamw import OptState
+from .optim.compression import FeedbackState
 
 
 def units_from_numpy(u_go, u_llv, u_rlv, u_fsr, u_tr, device=None) -> UnitSamples:
@@ -168,3 +171,18 @@ def decode_state_from_numpy(caches: Sequence[Mapping], pos, device=None) -> Deco
     arrays bit for bit, the position as a host int."""
     return DecodeState(caches=tuple(lm_params_from_numpy(list(caches), device)),
                        pos=int(pos))
+
+
+def opt_state_from_numpy(step, mu, nu, device=None) -> OptState:
+    """``optim.adamw.OptState`` from the reference's (step, mu, nu) as numpy
+    (``jax.tree.map(np.asarray, opt_state)``): the step as a 0-d int32
+    tensor, the moment trees bit for bit in their dtype."""
+    dev = resolve_device(device)
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                    mu=lm_params_from_numpy(mu, dev), nu=lm_params_from_numpy(nu, dev))
+
+
+def feedback_state_from_numpy(residual, device=None) -> FeedbackState:
+    """``optim.compression.FeedbackState`` from the reference's residual
+    tree as numpy, bit for bit."""
+    return FeedbackState(residual=lm_params_from_numpy(residual, device))

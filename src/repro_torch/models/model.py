@@ -1,8 +1,15 @@
-"""Unified LM: parameter init, the training forward (a loop over super-blocks),
-chunked cross-entropy, and the serving path (prefill + single-token decode
-with KV / SSM caches).  The reference's ``repro.models.model``, forward only:
-``remat`` and ``scan_levels`` change only what a backward pass saves, and
-come with the training slice.
+"""Unified LM: parameter init, the training forward (a loop over super-blocks
+with configurable remat), chunked cross-entropy, and the serving path
+(prefill + single-token decode with KV / SSM caches).  The reference's
+``repro.models.model``.
+
+``cfg.remat`` and ``cfg.scan_levels`` change only what autograd saves for
+the backward pass (``torch.utils.checkpoint``), never a forward value:
+``"full"`` keeps each super-block's input and recomputes the block in
+backward, ``"dots"`` also keeps the outputs of its 2-D weight products
+(``aten.mm``), ``"none"`` keeps everything; ``scan_levels=2`` also
+recomputes groups of ``_sqrt_factor(n_super)`` super-blocks, keeping only
+the groups' inputs.  The cross-entropy recomputes each chunk's logits.
 
 Parameters are a dict tree of tensors with the reference's keys, shapes and
 dtypes: ``embed``, ``final_norm``, ``lm_head`` and ``blocks``, a list with
@@ -11,9 +18,11 @@ one dict per position of ``cfg.pattern`` whose leaves are stacked over the
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..core.sampling import resolve_device
 from . import layers
@@ -202,6 +211,9 @@ def _super_params(blocks, s: int):
 
 def _super_block(h, blk_params, cfg: ModelConfig, positions):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    # the cast inside the block, as the reference's: under a checkpoint the
+    # bf16 copies are recomputed in backward, not kept
+    blk_params = _cast_tree(blk_params)
     for j, spec in enumerate(cfg.pattern):
         p = blk_params[j]
         mix, _ = _mixer(layers.rms_norm(h, p["norm1"]), p, spec, cfg, positions)
@@ -213,14 +225,89 @@ def _super_block(h, blk_params, cfg: ModelConfig, positions):
     return h, aux
 
 
+#: ``cfg.remat`` -> the reference's ``jax.checkpoint_policies`` name (None:
+#: save nothing).  ``"dots"`` saves the outputs of products without batch
+#: dimensions, which are ``aten.mm`` here (an (B, L, d) @ (d, f) product
+#: runs as one mm); the batched attention and SSD einsums and the MoE
+#: ``bmm``s are recomputed.
+_REMAT_POLICIES = {
+    "full": None,  # save nothing
+    "dots": "dots_with_no_batch_dims_saveable",
+    "none": "everything_saveable",
+}
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``"dots"``."""
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, **kwargs):
+    """``fn(*args)`` recomputed in backward (non-reentrant checkpoint);
+    called as it is when autograd is off."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    policy = _REMAT_POLICIES[cfg.remat]
+    if policy is None:
+        return functools.partial(_checkpoint, fn)
+    ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_mm)
+    return functools.partial(_checkpoint, fn, context_fn=ctx)
+
+
 # ----------------------------------------------------------------- forward
+def _sqrt_factor(n: int) -> int:
+    """Divisor of n closest to sqrt(n) (outer scan length)."""
+    best = 1
+    for d in range(1, n + 1):
+        if n % d == 0 and abs(d - n ** 0.5) < abs(best - n ** 0.5):
+            best = d
+    return best
+
+
 def backbone(params: Params, cfg: ModelConfig, h, positions):
-    """Run the block stack on embeddings h (B, L, d) -> (hidden, aux_loss)."""
-    aux = []
-    for s in range(_n_super(params["blocks"])):
-        h, a = _super_block(h, _super_params(params["blocks"], s), cfg, positions)
-        aux.append(a)
-    return layers.rms_norm(h, params["final_norm"]), torch.stack(aux).sum()
+    """Run the block stack on embeddings h (B, L, d) -> (hidden, aux_loss).
+
+    Each stacked leaf is unbound into its super-blocks once, so backward
+    stacks each leaf's gradient in one op (indexing it per super-block
+    would zero-fill a whole leaf for every super-block).
+    """
+    n = _n_super(params["blocks"])
+    slices = [{k: v.unbind(0) for k, v in blk.items()} for blk in params["blocks"]]
+
+    def block_params(s):
+        return [{k: t[s] for k, t in blk.items()} for blk in slices]
+
+    body = _maybe_remat(lambda carry, xs: _super_block(carry, xs, cfg, positions), cfg)
+
+    def run(h, first, count):
+        aux = []
+        for s in range(first, first + count):
+            h, a = body(h, block_params(s))
+            aux.append(a)
+        return h, torch.stack(aux)
+
+    if cfg.scan_levels == 2 and n > 3:
+        # sqrt-remat: only group-boundary carries are kept; the checkpointed
+        # group recomputes its inner carries in backward.  The per-block
+        # aux losses are summed once, in block order, at every remat setting.
+        outer = _sqrt_factor(n)
+        inner = n // outer
+        aux = []
+        for g in range(outer):
+            h, a = _checkpoint(run, h, g * inner, inner)
+            aux.append(a)
+        aux = torch.cat(aux)
+    else:
+        h, aux = run(h, 0, n)
+    return layers.rms_norm(h, params["final_norm"]), torch.sum(aux)
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens, extra_embeds=None):
@@ -232,20 +319,24 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens, extra_embeds=None):
     return h
 
 
+def _ce_chunk(hh, lm_head, yy, mm):
+    logits = (hh @ lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, yy[..., None].long())[..., 0]
+    return ((lse - gold) * mm).sum()
+
+
 def chunked_ce_loss(h, lm_head, labels, mask, chunk: int = 1024):
     """Cross-entropy without materializing (T, vocab) logits: a loop over
-    sequence chunks, fp32 log-softmax."""
+    sequence chunks, fp32 log-softmax, each chunk checkpointed so backward
+    recomputes its logits."""
     B, L, d = h.shape
     chunk = layers._largest_divisor(L, min(chunk, L))
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, L, chunk):
         hh, yy, mm = h[:, c:c + chunk], labels[:, c:c + chunk], mask[:, c:c + chunk]
-        logits = (hh @ lm_head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, yy[..., None].long())[..., 0]
-        nll = (lse - gold) * mm
-        tot, cnt = tot + nll.sum(), cnt + mm.sum()
+        tot, cnt = tot + _checkpoint(_ce_chunk, hh, lm_head, yy, mm), cnt + mm.sum()
     return tot / torch.clamp_min(cnt, 1.0)
 
 

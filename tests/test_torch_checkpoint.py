@@ -4,7 +4,10 @@ campaign checkpoints (``save_campaign`` / ``restore_campaign`` of
 
 * store: flattened keys equal the reference's; round trips keep the tree's
   structure, values and dtypes; ``keep=2`` retention; a stray
-  ``_tmp_step_*`` directory is never a step; ``shardings=`` raises;
+  ``_tmp_step_*`` directory is never a step; ``shardings=`` places leaves
+  and raises on another structure; a ``device="meta"`` target (the LM's
+  ``param_shapes``) restores the saved data on the CPU; bf16 leaves in the
+  reference's files;
 * across packages: a checkpoint the reference wrote restores in the port,
   and one the port wrote restores in the reference;
 * campaigns: a timeline split at step 1, 2 or 3, checkpointed, restored and
@@ -15,6 +18,7 @@ campaign checkpoints (``save_campaign`` / ``restore_campaign`` of
 Tolerances: exact (float32 bit for bit, integers and booleans equal).
 """
 import functools
+import json
 import tempfile
 from pathlib import Path
 
@@ -142,11 +146,10 @@ def test_restore_with_shardings_raises():
         _same(got, tree)
         got = store.restore(d, 1, tree, shardings={"w": torch.device("meta"), "s": ("meta",)})
         assert got["w"].device.type == "meta" == got["s"][0].device.type
-        # None keeps the target leaf's device, leaf by leaf
+        # None keeps the target leaf's device, leaf by leaf, save "meta":
+        # a meta target leaf holds no data, so it is restored on the CPU
         got = store.restore(d, 1, on_meta, shardings={"w": "cpu", "s": (None,)})
-        _same(got["w"], tree["w"])
-        assert got["s"][0].device.type == "meta"
-        assert (got["s"][0].shape, got["s"][0].dtype) == (tree["s"][0].shape, torch.int32)
+        _same(got, tree)
         got = store.restore(d, 1, tree, shardings={"w": None, "s": ("meta",)})
         _same(got["w"], tree["w"])
         assert got["s"][0].device.type == "meta"
@@ -186,6 +189,40 @@ def test_port_checkpoint_restores_in_reference(kind):
                                 jax.tree_util.tree_flatten_with_path(_jax(tree))[0]):
         assert gp == wp and g.dtype == w.dtype
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_restore_onto_param_shapes_returns_the_saved_data(tmp_path):
+    """The LM's abstract tree (``param_shapes``: meta tensors) as the
+    target, as the trainer restores: the saved data on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+
+    cfg = get_smoke("jamba-v0.1-52b")
+    params = M.init_params(0, cfg, device="cpu")
+    store.save(tmp_path, 1, params)
+    got = store.restore(tmp_path, 1, M.param_shapes(cfg))
+    _same(got, params)
+    assert all(t.device.type == "cpu" for _, t in M._leaves(got))
+
+
+def test_bf16_leaves_in_the_reference_files(tmp_path):
+    """bf16 leaves are saved as their 16-bit patterns (``|V2``) with the
+    dtype name ``bfloat16``, as the reference writes them, and restore as
+    bf16 from either package's files."""
+    gen = np.random.default_rng(6)
+    tree = {"h": torch.from_numpy(gen.standard_normal((3, 5)).astype(np.float32)).bfloat16(),
+            "w": torch.ones(2)}
+    store.save(tmp_path / "port", 2, tree)
+    jstore.save(tmp_path / "ref", 2, {"h": jnp.asarray(tree["h"].float().numpy(), jnp.bfloat16),
+                                      "w": jnp.ones(2)})
+    for side in ("port", "ref"):
+        d = tmp_path / side / "step_00000002"
+        with np.load(d / "host_0.npz") as z:
+            key = next(k for k in z.files if k.startswith("h||"))
+            assert z[key].dtype == np.dtype("V2")
+        index = json.loads((d / "index_0.json").read_text())
+        assert index[key]["dtype"] == "bfloat16"
+        _same(store.restore(tmp_path / side, 2, tree), tree)
 
 
 @functools.lru_cache(maxsize=None)

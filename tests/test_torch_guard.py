@@ -41,6 +41,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.obs.report, repro_torch.obs.smoke\n"
         "import repro_torch.launch, repro_torch.launch.mesh, repro_torch.configs\n"
         "import repro_torch.models.model, repro_torch.configs.archs, repro_torch.launch.serve\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression, repro_torch.tree\n"
+        "import repro_torch.distributed.steps, repro_torch.data.pipeline\n"
+        "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -100,6 +103,55 @@ def test_moe_a2a_waits_for_the_distribution_slice():
         model.prefill(params, cfg, tokens, 8)
     with pytest.raises(NotImplementedError, match="distribution slice"):
         model.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``Trainer`` without a device, ``launch.train`` without ``--device``,
+    ``init_state`` and ``init_feedback`` of abstract shapes run on CUDA
+    unless the caller names the CPU; there is no quiet fallback."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import steps
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke("mamba2-130m")
+    opt = adamw.AdamWConfig()
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    step = steps.make_train_step(cfg, opt, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    late = Trainer(cfg, tcfg, opt, None, step, None, None)
+    assert late.device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, tcfg, opt, None, step, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "mamba2-130m", "--steps", "1", "--ckpt", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        late.init_state()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compression.init_feedback(model.param_shapes(cfg))
+    assert not any(tmp_path.iterdir())
+    on_cpu = Trainer(cfg, tcfg, opt, "cpu", step, None, None)
+    assert on_cpu.init_state().params["embed"].device.type == "cpu"
+
+
+def test_shardings_wait_for_the_distribution_slice(tmp_path):
+    """Parameter or optimizer shardings over a mesh raise, naming the
+    distribution slice; the trainer never ignores them."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import steps
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke("mamba2-130m")
+    opt = adamw.AdamWConfig()
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    step = steps.make_train_step(cfg, opt, 1)
+    for shardings in (({"embed": "cpu"}, None), (None, {"mu": "cpu"})):
+        with pytest.raises(NotImplementedError, match="distribution slice"):
+            Trainer(cfg, tcfg, opt, "cpu", step, *shardings)
 
 
 def test_runtime_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -116,7 +116,8 @@ def test_counterparts_cover_the_ported_layers():
     for mod in ("core", "core.api", "core.sweep", "configs", "fabric", "fabric.sampling",
                 "launch.mesh", "checkpoint.store", "obs.phase", "optics.interconnect",
                 "models.config", "models.layers", "models.model", "configs.archs",
-                "configs.shapes", "launch.serve"):
+                "configs.shapes", "launch.serve", "optim.adamw", "optim.compression",
+                "distributed.steps", "data.pipeline", "runtime.trainer", "launch.train"):
         assert mod in COUNTERPARTS, mod
     assert set(EXEMPT) | set(EXTRA) <= set(COUNTERPARTS)
 
