@@ -106,7 +106,12 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             fabric's bring-up and repairs on the kernels, a depth-2
             full-width step against the CPU, a mamba2-130m run split by a
             checkpoint and resumed, a qwen3-moe-235b-a22b super-block with
-            bf16 moments).  Per-trial results on a 20 x 20 subset (per-link
+            bf16 moments); and the distribution path (``phase_dist``:
+            internlm2-1.8b whole through the sharded ``Trainer`` on a one-rank
+            1 x 1 mesh, bit for bit with the unsharded one; the a2a MoE of a
+            full-width qwen3-moe-235b-a22b super-block against the CPU; the
+            dry run of the Trainer's cell on a fake 1-rank world and of four
+            production cells on fake worlds of 256 and 512 ranks).  Per-trial results on a 20 x 20 subset (per-link
             results on a subset of links) are held against the CPU plain
             path, and every call is timed.  Then ``BENCH_sweep.json``'s
             fig4, fig5, fig14, fig17 and fig19 records are recomputed on the
@@ -3259,6 +3264,246 @@ def phase_train(seed: int) -> dict:
     return launches
 
 
+#: The distribution phase (``phase_dist``): internlm2-1.8b whole through the
+#: sharded Trainer on a 1 x 1 mesh at ``phase_train``'s settings (4 x 2,048,
+#: 2 microbatches), 2 steps; the a2a MoE of one full-width qwen3-moe
+#: super-block at 1 x 256 tokens; the production dry-run cells (arch, shape,
+#: multi-pod, moe_impl).
+DIST_STEPS = 2
+DIST_MOE_TOKENS = (1, 256)
+DIST_CELLS = (("internlm2-1.8b", "train_4k", False, None),
+              ("internlm2-1.8b", "train_4k", True, None),
+              ("qwen3-moe-235b-a22b", "train_4k", False, "gather"),
+              ("qwen3-moe-235b-a22b", "train_4k", False, "a2a"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(seed: int) -> dict:
+    """The distribution layer (``distributed.ctx`` / ``sharding`` /
+    ``hlo_walk`` / ``analysis``, ``launch.mesh`` / ``dryrun``, the sharded
+    ``Trainer``, ``moe_ffn_a2a``) on the card, with the launch counts set to
+    0 just before and read just after: the sharded Trainer's fabric bring-up
+    and repairs launch ``feasibility``, ``table_build`` and ``probe``.
+
+    a. A one-rank process group (NCCL for the card, gloo for the CPU; this
+       phase creates it and destroys it) and ``make_host_mesh()``, a 1 x 1
+       mesh over cuda:0.  internlm2-1.8b whole through the ``Trainer`` with
+       ``param_shardings`` / ``opt_shardings`` (DTensor parameters and
+       moments) at ``phase_train``'s settings for ``DIST_STEPS`` steps, and
+       the unsharded ``Trainer`` on the same seeds: losses and updated
+       parameters bit for bit (deterministic algorithms on for both, so
+       that the embedding backward accumulates in one order).
+    b. ``moe_ffn_a2a`` of one full-width qwen3-moe-235b-a22b super-block on
+       that mesh, held against the same function on a 1 x 1 CPU mesh within
+       ``LM_TOL``; the walker sees its two all-to-alls.
+    c. The dry run of (a)'s cell on a fake 1-rank world: its parameter and
+       optimizer argument bytes equal the real state's exactly; its
+       predicted peak beside (a)'s ``max_memory_allocated``.
+    d. ``DIST_CELLS`` dry-run at production size on fake worlds of 256 and
+       512 ranks of device type cuda: each record's roofline terms and
+       collective bytes.
+    """
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import ctx, hlo_walk, sharding, steps
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    wrappers = reset_launches()
+    t_phase = time.perf_counter()
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        cpu_mesh = make_host_mesh(device_type="cpu")
+        print(f"[dist] one-rank world: {mesh} and {cpu_mesh}")
+
+        # a. the sharded Trainer against the unsharded one
+        t_cell = time.perf_counter()
+        cfg = get_config("internlm2-1.8b")
+        opt_cfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=TRAIN_STEPS,
+                                    moment_dtype=cfg.moment_dtype)
+        psh = sharding.param_shardings(cfg, mesh)
+        osh = sharding.opt_shardings(psh, sharding.replicated(mesh))
+
+        def run(where, shardings):
+            with tempfile.TemporaryDirectory() as d:
+                tcfg = TrainerConfig(total_steps=DIST_STEPS, ckpt_every=DIST_STEPS + 1,
+                                     ckpt_dir=d, log_every=1, link_failure_prob_per_step=0.5,
+                                     seed=TRAIN_FABRIC_SEED)
+                tr = Trainer(cfg, tcfg, opt_cfg, where, steps.make_train_step(cfg, opt_cfg, 2),
+                             *shardings)
+                tr.bringup_fabric()
+                data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                                global_batch=TRAIN_BATCH, seed=seed))
+                try:
+                    # peaks above what was resident before (the sharded run
+                    # starts with the unsharded run's parameters kept)
+                    torch.cuda.synchronize()
+                    resident = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    state = tr.init_state()
+                    torch.cuda.synchronize()
+                    init_peak = torch.cuda.max_memory_allocated() - resident
+                    torch.cuda.reset_peak_memory_stats()
+                    state = tr.fit(state, iter(data))
+                    torch.cuda.synchronize()
+                finally:
+                    data.close()
+            return tr, state, (init_peak, torch.cuda.max_memory_allocated() - resident)
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain_tr, plain_state, plain_peak = run("cuda", (None, None))
+            plain_params = [t.detach() for t in tree_leaves(plain_state.params)]
+            del plain_state
+            gc.collect()
+            torch.cuda.empty_cache()
+            tr, state, peak = run(mesh, (psh, osh))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got = [t.full_tensor() if ctx.is_dtensor(t) else t for t in tree_leaves(state.params)]
+        if not all(ctx.is_dtensor(t) for t in tree_leaves(state.params) +
+                   tree_leaves(state.opt_state.mu)):
+            fail("the sharded Trainer's parameters and moments are not all DTensors")
+        losses = [m["loss"] for m in tr.metrics_log]
+        plain_losses = [m["loss"] for m in plain_tr.metrics_log]
+        same = [torch.equal(g, w) for g, w in zip(got, plain_params)]
+        if losses != plain_losses or not all(same):
+            fail(f"the 1 x 1 sharded Trainer differs from the unsharded one: losses "
+                 f"{losses!r} against {plain_losses!r}; {same.count(False)} of "
+                 f"{len(same)} parameter leaves differ")
+        p_bytes = sum(t.numel() * t.element_size() for t in got)
+        m_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in tree_leaves(state.opt_state.mu) + tree_leaves(state.opt_state.nu))
+        step = state.opt_state.step
+        step_bytes = (step.to_local() if ctx.is_dtensor(step) else step).element_size()
+        print(f"[dist] (a) internlm2-1.8b whole, {TRAIN_BATCH} x {TRAIN_SEQ}, 2 microbatches, "
+              f"remat full, Trainer seed {TRAIN_FABRIC_SEED} on the 1 x 1 mesh: losses "
+              f"{losses!r} equal the unsharded Trainer's {plain_losses!r}; all {len(same)} "
+              f"updated parameter leaves bit for bit; s/step sharded "
+              f"{[m['sec_per_step'] for m in tr.metrics_log]!r}, unsharded "
+              f"{[m['sec_per_step'] for m in plain_tr.metrics_log]!r}; peak "
+              f"max_memory_allocated above the resident bytes (init_state, steps) sharded "
+              f"{peak}, unsharded {plain_peak}; cell "
+              f"{time.perf_counter() - t_cell:.1f} s")
+        real_state = p_bytes + m_bytes + step_bytes
+        del state, tr, plain_tr, plain_params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # b. the a2a MoE of one full-width qwen3-moe super-block
+        t_cell = time.perf_counter()
+        mcfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=1,
+                                   moe_impl="a2a")
+        blk = M.init_params(seed, mcfg)["blocks"][0]
+        p = {k: blk[k][0].to(M.COMPUTE) for k in ("router", "w_gate", "w_up", "w_down")}
+        b, length = DIST_MOE_TOKENS
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        x = torch.randn((b, length, mcfg.d_model), generator=gen, device="cuda").to(M.COMPUTE)
+
+        def a2a(m, p, x):
+            rules = {k: sharding.NamedSharding(m, ("model", None, None) if k != "router"
+                                               else (None, None)) for k in p}
+            pd = sharding.shard_tree(p, rules)
+            xd = sharding.shard_leaf(x, sharding.NamedSharding(m, ("data", None, None)))
+            walker = hlo_walk.Walker()
+            with ctx.activation_axes(m), walker:
+                y, st = layers.moe_ffn_a2a(xd, pd, mcfg)
+            return y.full_tensor(), st, walker.cost
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, st, cost = a2a(mesh, p, x)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        y_cpu, st_cpu, _ = a2a(cpu_mesh, {k: v.cpu() for k, v in p.items()}, x.cpu())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = _lm_hold("qwen3-moe a2a MoE", y, y_cpu)
+        aux_err = _lm_hold("qwen3-moe a2a aux loss", st.aux_loss.full_tensor(),
+                           st_cpu.aux_loss.full_tensor())
+        if cost.per_collective_ops.get("all-to-all") != 2:
+            fail(f"moe_ffn_a2a ran {cost.per_collective_ops} collectives, not two all-to-alls")
+        print(f"[dist] (b) qwen3-moe-235b-a22b super-block moe_ffn_a2a, {b} x {length} tokens, "
+              f"E {mcfg.n_experts} k {mcfg.top_k}, 1 x 1 mesh: card against a 1 x 1 CPU mesh "
+              f"max |diff| {err!r} (LM_TOL {LM_TOL}), aux loss {aux_err!r}; collectives "
+              f"{cost.per_collective_ops}; {card_ms!r} ms on the card (first call), "
+              f"{cpu_ms!r} ms on the CPU; cell {time.perf_counter() - t_cell:.1f} s")
+        del p, x, y, y_cpu, blk
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # c. the dry run of (a)'s cell on a fake 1-rank world
+    t_cell = time.perf_counter()
+    dryrun.fake_world(1, "cuda")
+    try:
+        cell = ShapeCell("train_2k_b4", "train", TRAIN_SEQ, TRAIN_BATCH)
+        rec, _ = dryrun.trace_cell(cfg, cell, make_host_mesh(device_type="cuda"),
+                                   n_micro_override=2)
+    finally:
+        dist.destroy_process_group()
+    mem = rec["memory"]
+    if mem["parameter_bytes"] + mem["optimizer_bytes"] != real_state:
+        fail(f"the dry run's parameter + optimizer bytes {mem['parameter_bytes']} + "
+             f"{mem['optimizer_bytes']} are not the real state's {real_state}")
+    print(f"[dist] (c) dry run of (a)'s cell on a fake 1-rank world: arguments "
+          f"{mem['argument_size_in_bytes']} bytes (parameters {mem['parameter_bytes']} + "
+          f"optimizer {mem['optimizer_bytes']} = the real state's {real_state}, inputs "
+          f"{mem['input_bytes']}); predicted peak temp {mem['temp_size_in_bytes']} + arguments "
+          f"= {dryrun.bytes_per_device(rec)} bytes against (a)'s steps' max_memory_allocated "
+          f"{peak[1]}; "
+          f"roofline {rec['roofline']['step_time_lower_bound_s']!r} s a step "
+          f"({rec['roofline']['dominant']}) against (a)'s measured s/step; trace "
+          f"{rec['trace_s']} s; cell {time.perf_counter() - t_cell:.1f} s")
+
+    # d. production-size dry runs
+    for arch, shape, multi, impl in DIST_CELLS:
+        t_cell = time.perf_counter()
+        over = {"moe_impl": impl} if impl else None
+        rec, _ = dryrun.lower_cell(arch, shape, multi, cfg_overrides=over, device_type="cuda",
+                                   variant=impl or "baseline")
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} {shape} {'multi' if multi else 'single'}: {rec}")
+        r = rec["roofline"]
+        print(f"[dist] (d) dry run {arch} x {shape} {rec['mesh']} ({rec['n_devices']} ranks"
+              f"{', moe_impl ' + impl if impl else ''}): compute {r['compute_s']!r} s, memory "
+              f"{r['memory_s']!r} s, collective {r['collective_s']!r} s, dominant "
+              f"{r['dominant']}, roofline fraction {r['roofline_fraction']!r}; collective wire "
+              f"bytes {rec['collectives']['wire_bytes']}; ops {rec['collectives']['ops']}; "
+              f"memory/device {dryrun.bytes_per_device(rec)} bytes; trace {rec['trace_s']} s; "
+              f"cell {time.perf_counter() - t_cell:.1f} s")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+    launches = {k: w.launches for k, w in wrappers.items()}
+    missed = [k for k in ("feasibility", "table_build", "probe") if not launches[k]]
+    if missed:
+        fail(f"the distribution path launched no {missed}: {launches}")
+    print(f"[dist] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _means(a, places=2):
     """(S, K) per-link stat -> per-step link means, rounded, as fig22 does."""
     import numpy as np
@@ -3582,13 +3827,14 @@ def main() -> int:
                         ("mesh", lambda seed: phase_mesh(seed, sweep_runs, fabric_runs,
                                                          chaos_runs)),
                         ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs)),
-                        ("lm", phase_lm), ("train", phase_train)):
+                        ("lm", phase_lm), ("train", phase_train), ("dist", phase_dist)):
         t_phase = time.perf_counter()
         paths.append(phase(args.seed))
         print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
-          f"interconnect, campaign, mesh, obs, LM and training paths: {launches}")
+          f"interconnect, campaign, mesh, obs, LM, training and distribution paths: "
+          f"{launches}")
     t_rec = time.perf_counter()
     phase_records()
     print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")

@@ -99,6 +99,8 @@ def _host_array(leaf) -> np.ndarray:
     """A leaf as numpy; a bf16 tensor as its 16-bit patterns (``|V2``, the
     bytes the reference's ``ml_dtypes`` bfloat16 arrays are saved as)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):      # a DTensor: its whole value
+            leaf = leaf.full_tensor()
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -160,9 +162,12 @@ def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
     target's leaf (the CPU where the target's leaf is not a tensor or is a
     ``device="meta"`` one, as ``models.model.param_shapes`` makes).
     ``shardings``, a tree of the target's structure whose leaves are
-    ``torch.device``s, device strings or None, places each restored leaf on
-    its device instead (None keeps the target leaf's); a tree of another
-    structure raises ``ValueError``.
+    ``torch.device``s, device strings, ``distributed.sharding.NamedSharding``s
+    (as ``param_shardings`` / ``opt_shardings`` give them) or None, places
+    each restored leaf on its device instead, or as a ``DTensor`` on the
+    sharding's mesh (the reference's elastic restart onto a new mesh); None
+    keeps the target leaf's.  A tree of another structure raises
+    ``ValueError``.
     """
     placement = _flat_up_to(target_tree, shardings) if shardings is not None else {}
     d = Path(ckpt_dir) / f"step_{step:08d}"
@@ -194,11 +199,21 @@ def restore(ckpt_dir: str | Path, step: int, target_tree, shardings=None):
 
     def leaf(key, target):
         dev = placement.get(key)
+        sh = None
+        if dev is not None and hasattr(dev, "placements"):    # a NamedSharding
+            sh = dev
+            dt = sh.mesh.device_type
+            dev = torch.device("cuda", torch.cuda.current_device()) if dt == "cuda" else dt
         if dev is None:
             on_target = isinstance(target, torch.Tensor) and target.device.type != "meta"
             dev = target.device if on_target else "cpu"
         t = torch.as_tensor(globals_[key], device=torch.device(dev))
-        return t.view(torch.bfloat16) if key in bf16 else t
+        t = t.view(torch.bfloat16) if key in bf16 else t
+        if sh is not None:
+            from ..distributed.sharding import shard_leaf
+
+            t = shard_leaf(t, sh)
+        return t
 
     return _map_with_path(leaf, target_tree)
 

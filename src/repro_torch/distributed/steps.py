@@ -2,8 +2,10 @@
 
 ``train_step``: gradient accumulation over microbatches (the remat'd model
 inside), one AdamW update.  ``prefill_step`` / ``decode_step``: the serving
-units.  No sharding hints: the port has no 2-D mesh until its distribution
-slice.
+units.  On ``DTensor`` parameters and batches (placed by
+``distributed.sharding``) the steps run under the caller's
+``ctx.activation_axes``: the gradients come back as ``DTensor``s and the
+update runs on each device's shards (``optim.adamw.apply``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed.ctx import is_dtensor
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -24,6 +27,30 @@ def _grad_tree(params):
     return tree, tree_leaves(tree)
 
 
+def micro_grads(cfg: ModelConfig, params, batch):
+    """One microbatch's (loss, aux metrics, gradients in ``tree_leaves``
+    order), detached."""
+    tree, leaves = _grad_tree(params)
+    with torch.enable_grad():
+        l, aux = M.loss_fn(tree, cfg, batch)
+        grads = torch.autograd.grad(l, leaves)
+    return l.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def accumulators(params, dtype):
+    """Zero gradient accumulators in ``dtype``, one a parameter leaf (with a
+    ``DTensor`` leaf's placements)."""
+    return [torch.zeros_like(p, dtype=dtype) if is_dtensor(p)
+            else torch.zeros(p.shape, dtype=dtype, device=p.device)
+            for p in tree_leaves(params)]
+
+
+def accumulate(acc, grads, dtype) -> None:
+    """``acc += grads`` in ``dtype``, leaf by leaf, in place."""
+    for a, g in zip(acc, grads):
+        a.add_(g.to(dtype))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, n_microbatch: int):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
@@ -35,11 +62,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, n_microbatch: 
     """
 
     def micro(params, batch_slice):
-        tree, leaves = _grad_tree(params)
-        with torch.enable_grad():
-            l, aux = M.loss_fn(tree, cfg, batch_slice)
-            grads = torch.autograd.grad(l, leaves)
-        return l.detach(), {k: v.detach() for k, v in aux.items()}, grads
+        return micro_grads(cfg, params, batch_slice)
 
     def train_step(params, opt_state, batch):
         adt = getattr(torch, cfg.accum_dtype)
@@ -51,15 +74,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, n_microbatch: 
             if B % n_microbatch:
                 raise ValueError(f"batch {B} does not split into {n_microbatch} microbatches")
             mb = B // n_microbatch
-            acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                   for p in tree_leaves(params)]
+            acc = accumulators(params, adt)
             lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             auxs = []
             for i in range(n_microbatch):
                 bslice = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 l, aux, grads = micro(params, bslice)
-                for a, g in zip(acc, grads):
-                    a.add_(g.to(adt))
+                accumulate(acc, grads, adt)
                 del grads
                 lsum = lsum + l
                 auxs.append(aux)

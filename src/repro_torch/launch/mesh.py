@@ -1,4 +1,16 @@
-"""The 1-D device mesh of the multi-device paths.
+"""Device meshes: the 2-D (or 3-D) ``DeviceMesh``es of the LM stack and the
+1-D mesh of the sweep paths.
+
+``make_production_mesh`` and ``make_host_mesh`` are the reference's
+``jax.make_mesh`` meshes as ``torch.distributed.device_mesh.DeviceMesh``es
+with its axis names and shapes.  They use the default process group the
+caller set up (``torch.distributed.init_process_group``: NCCL across cards,
+``gloo`` across CPU processes, or the ``"fake"`` backend of the dry run):
+no function here creates one, and one that does not fit raises.  Their
+``device_type`` is ``"cuda"`` unless the caller names ``"cpu"``; without a
+card ``"cuda"`` raises (a dry run's plan of redistributions depends on it).
+
+The 1-D sweep mesh:
 
 ``sweep(SweepRequest(mesh=...))``, fabric ``bringup(mesh=...)`` and
 ``run_fabric_timeline(mesh=...)`` split their chunk axis over a ``SweepMesh``
@@ -41,6 +53,74 @@ class SweepMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "a device mesh needs a process group: call "
+            "torch.distributed.init_process_group first (the dry run "
+            "initialises a 'fake' one of 256 or 512 ranks)")
+    return dist.get_world_size()
+
+
+def _device_type(device_type: str) -> str:
+    """``device_type`` as given: ``"cuda"`` (the default of every mesh here)
+    raises without a card, and nothing falls back to the CPU unless the
+    caller names ``"cpu"``."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', got {device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device_type='cuda' needs a CUDA card; pass device_type='cpu' "
+                           "for a CPU mesh")
+    return device_type
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks), axes
+    ("data", "model") or ("pod", "data", "model").
+
+    When the world holds more ranks than the mesh needs (a 512-rank dry run
+    building a single-pod mesh), the leading ranks are used; fewer raise.
+    """
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    world = _world()
+    dev = _device_type(device_type)
+    if world == n:
+        return init_device_mesh(dev, shape, mesh_dim_names=axes)
+    if world > n:
+        return DeviceMesh(dev, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    raise RuntimeError(
+        f"need {n} ranks for mesh {shape}, have {world} — run under "
+        "repro_torch.launch.dryrun (a 'fake' world of 512 ranks)"
+    )
+
+
+def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
+    """(world / model_parallel, model_parallel) mesh, axes ("data", "model"),
+    over every rank of the process group (tests, examples, one card)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = _world()
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"{n} ranks do not split into model_parallel={model_parallel}")
+    return init_device_mesh(_device_type(device_type), (n // model_parallel, model_parallel),
+                            mesh_dim_names=("data", "model"))
+
+
+def data_axes(mesh) -> tuple:
+    """Mesh axes that shard the batch (pod + data when present)."""
+    from ..distributed.ctx import mesh_axis_names
+
+    return ("pod", "data") if "pod" in mesh_axis_names(mesh) else ("data",)
 
 
 def make_sweep_mesh(n_devices: int | None = None) -> SweepMesh:

@@ -6,16 +6,27 @@ in fp32, as the reference (``repro.models.layers``) does.
 The reference's ``preferred_element_type=float32`` products of two bf16
 operands are computed here on operands upcast with ``.float()`` first: the
 product of two bf16 values is exact in f32, so only the f32 summation order
-differs.  ``moe_ffn_a2a`` (an all-to-all over a device mesh) comes with the
-distribution slice.
+differs.
+
+Under a mesh (``distributed.ctx.activation_axes`` with ``DTensor``
+parameters and inputs) the layers take the reference's sharding
+constraints (``constrain``) at its sites.  Where the reference's body is a
+scan that GSPMD partitions by those constraints, the port runs the same
+plain body on each device's local shards with ``local_map``: flash
+attention on batch shards (the reference pins its tiles and carries to the
+batch axes), the SSD scan on batch and head shards, the MoE dispatch with
+explicit collectives.  Outside a mesh every function runs as before, on
+plain tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import constrain, current_axes, is_dtensor, replicate_like, spec_for
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -72,8 +83,50 @@ def _largest_divisor(n: int, at_most: int) -> int:
     return n
 
 
+def _local(fn, xs, dims, out_dims, partial_grads=None):
+    """``fn`` on each device's local shards of the ``DTensor``s ``xs``, each
+    constrained to its ``dims`` first; its outputs are the local shards of
+    ``DTensor``s placed by ``out_dims``, given as (dims, global shape) pairs
+    (``torch.distributed.tensor.experimental.local_map``).  The gradient of
+    an input takes its placements, save that ``partial_grads`` maps an
+    input's number to "model" or "batch": its gradient is a partial sum over
+    those axes, where it is replicated (each of their shards uses it only in
+    part)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import placements_for
+
+    xs = [constrain(x, d) for x, d in zip(xs, dims)]
+    mesh = xs[0].device_mesh
+    # one output's placements are a list: a tuple names several outputs
+    outs = tuple(list(placements_for(mesh, spec_for(shape, d))) for d, shape in out_dims)
+    ins = tuple(list(x.placements) for x in xs)
+    axes = current_axes() or {"model": None, "batch": ()}
+    names = list(mesh.mesh_dim_names)
+    kinds = {"model": {names.index(axes["model"])} if axes["model"] else set(),
+             "batch": {names.index(a) for a in axes["batch"]}}
+    partial_grads = partial_grads or {}
+    grads = tuple(
+        [Partial() if i in partial_grads and j in kinds[partial_grads[i]] and pl.is_replicate()
+         else pl for j, pl in enumerate(p)] for i, p in enumerate(ins))
+    return local_map(fn, outs if len(outs) > 1 else outs[0], in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh)(*xs)
+
+
+def _batch_dims(x):
+    return ("batch",) + (None,) * (x.dim() - 1)
+
+
 def flash_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
                     q_offset: int = 0, causal_skip: bool = False):
+    if is_dtensor(q):
+        # the reference pins q, k, v, its tiles and its carries to the batch
+        # axes: the whole attention runs on batch shards, every head local
+        fn = functools.partial(flash_attention, causal=causal, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk, q_offset=q_offset, causal_skip=causal_skip)
+        return _local(fn, (q, k, v), [_batch_dims(t) for t in (q, k, v)],
+                      [(_batch_dims(q), q.shape)])
     if causal and causal_skip and q.shape[1] == k.shape[1] and q_offset == 0:
         return flash_attention_causal_pairs(q, k, v, chunk=min(q_chunk, kv_chunk))
     return _flash_attention_dense(
@@ -158,6 +211,8 @@ def decode_attention(q, k_cache, v_cache, kv_len):
 
     q: (B, 1, H, hd); caches: (B, Lmax, KVH, hd); kv_len: valid prefix length.
     """
+    if is_dtensor(k_cache):
+        return _decode_attention_mesh(q, k_cache, v_cache, kv_len)
     B, _, H, hd = q.shape
     _, Lmax, KVH, _ = k_cache.shape
     group = H // KVH
@@ -170,14 +225,69 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _decode_attention_mesh(q, k_cache, v_cache, kv_len):
+    """``decode_attention`` on the caches' own shards: batch and kv heads
+    where the caches shard them (q's heads follow their kv group), and a
+    sequence sharded over mesh axes is reduced in place (flash decoding):
+    each device scores its rows, and the row max, the exp-sums and the
+    weighted values are all-reduced over those axes."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k_cache.device_mesh
+    cpl = list(k_cache.placements)
+    # q (B, 1, H, hd): batch and heads as the cache's (B, Lmax, KVH, hd)
+    qpl = [pl if pl.is_shard(0) or pl.is_shard(2) else Replicate() for pl in cpl]
+    seq = [i for i, pl in enumerate(cpl) if pl.is_shard(1)]
+    if not seq:
+        fn = functools.partial(decode_attention, kv_len=kv_len)
+        return local_map(fn, qpl, in_placements=(qpl, cpl, cpl), device_mesh=mesh)(
+            q.redistribute(mesh, qpl), k_cache, v_cache.redistribute(mesh, cpl))
+    n_loc = k_cache.to_local().shape[1]
+    first = 0
+    for i in seq:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= n_loc
+
+    def reduce(x, op):
+        for i in seq:
+            x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, i)))
+        return x
+
+    def local(ql, kl, vl):
+        B, _, H, hd = ql.shape
+        KVH = kl.shape[2]
+        qr = ql.reshape(B, KVH, H // KVH, hd).float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qr, kl.float()) * (hd ** -0.5)
+        mask = first + torch.arange(kl.shape[1], device=ql.device) < kv_len
+        s = torch.where(mask, s, NEG_INF)
+        m = reduce(s.amax(-1, keepdim=True), "max")
+        p = torch.exp(s - m)
+        den = reduce(p.sum(-1, keepdim=True), "sum")
+        num = reduce(torch.einsum("bhgk,bkhd->bhgd", p.to(vl.dtype).float(), vl.float()), "sum")
+        return (num / den).reshape(B, 1, H, hd).to(ql.dtype)
+
+    return local_map(local, qpl, in_placements=(qpl, cpl, cpl), device_mesh=mesh)(
+        q.redistribute(mesh, qpl), k_cache, v_cache.redistribute(mesh, cpl))
+
+
 # ----------------------------------------------------------------- FFNs
 def dense_ffn(x, p, cfg: ModelConfig):
+    # on a mesh the hidden layer takes the TP layout (ffn-hidden over
+    # `model`) whatever the weights' sharding; the identity outside one.
+    # The reference leaves this layout to GSPMD: under the TP rules it is
+    # what the weights give anyway, and under flat FSDP it is a choice of
+    # the port's (DTensor cannot redistribute the nested strided shard)
+    def up(w):
+        return constrain(x @ w, ("batch", None, "model"))
+
     if cfg.act == "swiglu":
-        h = _silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = _silu(up(p["w_gate"])) * up(p["w_up"])
     elif cfg.act == "squared_relu":
-        h = torch.square(F.relu(x @ p["w_up"]))
+        h = torch.square(F.relu(up(p["w_up"])))
     elif cfg.act == "gelu":
-        h = _gelu(x @ p["w_up"])
+        h = _gelu(up(p["w_up"]))
     else:
         raise ValueError(cfg.act)
     return h @ p["w_down"]
@@ -224,32 +334,67 @@ def moe_ffn(x, p, cfg: ModelConfig):
     reference's ``segment_sum`` over ``repeat(arange(T), k)`` does, without
     atomics.
     """
+    if is_dtensor(x):
+        return _moe_ffn_mesh(x, p, cfg)
     B, L, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
     T = B * L
+    y, aux, dropped = _moe_gather(x.reshape(T, d), p, cfg)
+    return y.reshape(B, L, d), MoEStats(aux, dropped)
+
+
+def _counts(flat_e, E: int):
+    """Routed copies per expert, in f32 (exact: ``bincount`` has an output
+    size that depends on the data, which a fake tensor cannot give)."""
+    ones = torch.ones(flat_e.shape, dtype=torch.float32, device=flat_e.device)
+    return torch.zeros(E, dtype=torch.float32, device=flat_e.device).index_add_(0, flat_e, ones)
+
+
+def _experts(buf, wg, wu, wd, cfg: ModelConfig):
+    """The expert FFNs on their (E, cap, d) buffers."""
+    if cfg.act == "swiglu":
+        h = _silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    else:
+        h = torch.square(F.relu(torch.bmm(buf, wu)))
+    return torch.bmm(h, wd)
+
+
+def _combine(routed, keep, gate, T: int, k: int):
+    """Each token's k kept, gate-weighted copies added in choice order (the
+    reference's ``segment_sum`` over ``repeat(arange(T), k)``)."""
+    routed = torch.where(keep[:, None], routed, 0.0)
+    w = (gate.reshape(-1) * keep).to(routed.dtype)
+    routed = (routed * w[:, None]).reshape(T, k, routed.shape[-1])
+    y = routed[:, 0]
+    for i in range(1, k):
+        y = y + routed[:, i]
+    return y
+
+
+def _moe_gather(xf, p, cfg: ModelConfig, experts=None):
+    """``moe_ffn`` on (T, d) tokens: (y, aux, dropped).  ``experts`` is
+    ``(wg, wu, wd, split, gather)`` on a mesh: ``split`` takes this device's
+    experts' buffers, which go through the local expert weights, and
+    ``gather`` makes the (E, cap, d) outputs of every expert from the local
+    ones."""
+    T, d = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
     cap = _capacity(cfg, T)
-    xf = x.reshape(T, d)
     probs, gate, flat_e, pos, keep = _route(xf, p["router"], cfg, cap)
-    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    tok = torch.arange(T, device=xf.device).repeat_interleave(k)
 
     slot = flat_e * (cap + 1) + torch.where(keep, pos, cap)
-    buf = x.new_zeros((E * (cap + 1), d)).index_copy_(0, slot, xf[tok])
+    buf = xf.new_zeros((E * (cap + 1), d)).index_copy_(0, slot, xf[tok])
     buf = buf.view(E, cap + 1, d)[:, :cap]
 
     # expert computation
-    if cfg.act == "swiglu":
-        h = _silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    if experts is None:
+        out_buf = _experts(buf, p.get("w_gate"), p["w_up"], p["w_down"], cfg)  # (E, cap, d)
     else:
-        h = torch.square(F.relu(torch.bmm(buf, p["w_up"])))
-    out_buf = torch.bmm(h, p["w_down"])                        # (E, cap, d)
+        wg, wu, wd, split, gather = experts
+        out_buf = gather(_experts(split(buf), wg, wu, wd, cfg))
 
     routed = out_buf[flat_e, torch.where(keep, pos, cap - 1)]   # (T*k, d)
-    routed = torch.where(keep[:, None], routed, 0.0)
-    w = (gate.reshape(-1) * keep).to(routed.dtype)
-    routed = (routed * w[:, None]).reshape(T, k, d)
-    y = routed[:, 0]
-    for i in range(1, k):       # the reference's segment_sum adds in this order
-        y = y + routed[:, i]
+    y = _combine(routed, keep, gate, T, k)
 
     if cfg.n_shared_experts:
         sh = _silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
@@ -257,10 +402,222 @@ def moe_ffn(x, p, cfg: ModelConfig):
 
     # Switch-style load-balance auxiliary loss.
     me = probs.mean(dim=0)
-    ce = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    ce = _counts(flat_e, E) / (T * k)
     aux = E * torch.sum(me * ce)
     dropped = 1.0 - keep.float().mean()
-    return y.reshape(B, L, d), MoEStats(aux, dropped)
+    return y, aux, dropped
+
+
+def _model_axis(mesh):
+    """(name, size, index) of the context's model axis on ``mesh``, or Nones."""
+    axes = current_axes()
+    name = axes.get("model") if axes else None
+    if name is None:
+        return None, 1, None
+    idx = list(mesh.mesh_dim_names).index(name)
+    return name, mesh.size(idx), idx
+
+
+def _all_gather(x, mesh, mi):
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    return funcol.wait_tensor(gather(x.contiguous(), 0, (mesh, mi)))
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along dim 0 over one mesh axis, for a computation every
+    device of that axis repeats: the gradient is this device's slice of the
+    (identical) incoming one, not a sum over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mi):
+        ctx.n, ctx.i = mesh.size(mi), mesh.get_local_rank(mi)
+        return _all_gather(x, mesh, mi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n)[ctx.i], None, None
+
+
+class SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) over one mesh axis of partial results whose sum every
+    device of the axis then uses whole: the gradient passes through as it is
+    (each device's part takes the whole, identical incoming gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mi):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", (mesh, mi)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    """This device's slice along dim 0 of a tensor every device of one mesh
+    axis holds whole: its gradient is all-gathered over the axis, since the
+    other devices took the gradients of the other slices."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mi):
+        ctx.mesh, ctx.mi = mesh, mi
+        return x.chunk(mesh.size(mi))[mesh.get_local_rank(mi)]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.mi), None, None
+
+
+def _moe_ffn_mesh(x, p, cfg: ModelConfig):
+    """The gather MoE on ``DTensor``s: every device routes all T tokens (the
+    reference's capacity is global), fills the buffers of its experts (the
+    ``model`` shard of E; the reference pins the buffers there), runs them,
+    and all-gathers the (E, cap, d) outputs over ``model`` to combine (the
+    buffer all-gather the reference's GSPMD lowering makes)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    B, L, d = x.shape
+    T = B * L
+    E = cfg.n_experts
+    mesh = x.device_mesh
+    name, M, mi = _model_axis(mesh)
+    if name is None or E % M:
+        M, mi = 1, None
+    rep = [Replicate()] * mesh.ndim
+    ew = [Shard(0) if i == mi else Replicate() for i in range(mesh.ndim)]
+    keys = [k_ for k_ in ("w_gate", "w_up", "w_down") if k_ in p]
+    shared = [k_ for k_ in ("router", "shared_gate", "shared_up", "shared_down") if k_ in p]
+    xr = constrain(x, (None, None, None)).reshape(T, d)       # every token on every device
+    ws = [p[k_].redistribute(mesh, ew) for k_ in keys]
+    ss = [p[k_].redistribute(mesh, rep) for k_ in shared]
+    def split(buf):
+        return buf if mi is None else _SliceReplicated.apply(buf, mesh, mi)
+
+    def gather(out_local):
+        return out_local if mi is None else _GatherReplicated.apply(out_local, mesh, mi)
+
+    def local(xf, *tensors):
+        w = dict(zip(keys, tensors[:len(keys)]))
+        q = dict(zip(shared, tensors[len(keys):]))
+        experts = (w.get("w_gate"), w["w_up"], w["w_down"], split, gather)
+        return _moe_gather(xf, q, cfg, experts)
+
+    y, aux, dropped = local_map(
+        local, (rep, rep, rep), in_placements=(rep,) + (ew,) * len(ws) + (rep,) * len(ss),
+        device_mesh=mesh)(xr, *ws, *ss)
+    y = constrain(y.reshape(B, L, d), ("batch", None, None))
+    return y, MoEStats(aux, dropped)
+
+
+def moe_ffn_a2a(x, p, cfg: ModelConfig):
+    """Expert-parallel MoE with explicit all-to-all dispatch (GShard layout).
+
+    Tokens are split over (dp..., model); each token shard routes its own
+    tokens with a per-shard capacity ``max(4, cf * T_loc * k / E)``, fills a
+    send buffer (M, E_loc, cap, d) — destination rank, local expert, slot, so
+    no indices travel — and exchanges it over ``model`` with an all-to-all
+    (``all_to_all_single``); the expert outputs return by a second one.  The
+    load-balance loss is taken over all tokens; ``dropped_frac`` is 0, as in
+    the reference.
+
+    Falls back to ``moe_ffn`` exactly where the reference does: no mesh
+    context, no model axis, a non-swiglu activation, E not dividing the
+    model axis or T not dividing the token shards.  Under a mesh context the
+    input must be a ``DTensor`` (a plain tensor has no mesh to split over).
+    """
+    axes = current_axes()
+    E, k = cfg.n_experts, cfg.top_k
+    if axes is None or axes.get("model") is None or cfg.act != "swiglu":
+        return moe_ffn(x, p, cfg)
+    if not is_dtensor(x):
+        raise ValueError("moe_ffn_a2a under a mesh context takes DTensor inputs")
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import placements_for
+
+    mesh = x.device_mesh
+    dp = axes["batch"]
+    model_ax = axes["model"]
+    names = list(mesh.mesh_dim_names)
+    mi = names.index(model_ax)
+    M = mesh.size(mi)
+    B, L, d = x.shape
+    T = B * L
+    n_tok_shards = M
+    for a in dp:
+        n_tok_shards *= mesh.size(names.index(a))
+    if E % M != 0 or T % n_tok_shards != 0:
+        return moe_ffn(x, p, cfg)
+    E_loc = E // M
+    T_loc = T // n_tok_shards
+    cap = max(4, int(cfg.capacity_factor * T_loc * k / E))
+
+    tok = list(placements_for(mesh, ((*dp, model_ax), None)))
+    ew = [Shard(0) if i == mi else Replicate() for i in range(mesh.ndim)]
+    rep = [Replicate()] * mesh.ndim
+    part = [Partial()] * mesh.ndim
+    xb = constrain(x, ("batch", None, None)).reshape(T, d)
+    xf = xb.redistribute(mesh, tok)
+    ws = [p[n].redistribute(mesh, ew) for n in ("w_gate", "w_up", "w_down")]
+    router = p["router"].redistribute(mesh, rep)
+    group = (mesh, mi)
+
+    def a2a(t):
+        shape = t.shape
+        out = funcol.all_to_all_single_autograd(t.reshape(M, -1), None, None, group)
+        return out.reshape(shape)
+
+    def local_moe(xf_l, router_l, wg, wu, wd):
+        t_l = xf_l.shape[0]
+        logits = xf_l.float() @ router_l.float()
+        probs = torch.softmax(logits, dim=-1)
+        ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, idx = ranked.values[:, :k], ranked.indices[:, :k]
+        gate = (gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)).to(xf_l.dtype)
+        flat_e = idx.reshape(-1)                       # (t_l*k,)
+        dst = flat_e // E_loc
+        e_loc = flat_e % E_loc
+        pos = (F.one_hot(flat_e, E).cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+        keep = pos < cap
+        tok_i = torch.arange(t_l, device=xf_l.device).repeat_interleave(k)
+        # kept copies own distinct slots; the dropped ones go to a spare slot
+        slot = (dst * E_loc + e_loc) * (cap + 1) + torch.where(keep, pos, cap)
+        send = xf_l.new_zeros((M * E_loc * (cap + 1), d)).index_copy(0, slot, xf_l[tok_i])
+        send = send.view(M, E_loc, cap + 1, d)[:, :, :cap]
+        recv = a2a(send.contiguous())                  # (M_src, E_loc, cap, d)
+        xbuf = recv.transpose(0, 1).reshape(E_loc, M * cap, d)
+        obuf = _experts(xbuf, wg, wu, wd, cfg)
+        oback = obuf.reshape(E_loc, M, cap, d).transpose(0, 1).contiguous()
+        ret = a2a(oback)                               # (M_dst, E_loc, cap, d)
+        routed = ret[dst, e_loc, torch.where(keep, pos, cap - 1)]
+        y = _combine(routed, keep, gate, t_l, k)
+        return y, probs.sum(dim=0), _counts(flat_e, E)
+
+    # each device routes its own tokens, and its experts see the tokens of
+    # its model group only: the router's gradient is a partial sum over the
+    # whole mesh, the experts' over the dp axes
+    ew_grad = [pl if i == mi else Partial() for i, pl in enumerate(ew)]
+    y, psum, counts = local_map(
+        local_moe, (tok, part, part), in_placements=(tok, rep, ew, ew, ew),
+        in_grad_placements=(tok, part, ew_grad, ew_grad, ew_grad),
+        device_mesh=mesh)(xf, router, *ws)
+
+    y = constrain(y, ("batch", None)).reshape(B, L, d)
+    if cfg.n_shared_experts:
+        sh = _silu(xb @ p["shared_gate"]) * (xb @ p["shared_up"])
+        y = y + (sh @ p["shared_down"]).reshape(B, L, d)
+
+    me = psum.redistribute(mesh, rep) / T
+    ce = counts.redistribute(mesh, rep) / (T * k)
+    aux = E * torch.sum(me * ce)
+    y = constrain(y, ("batch", None, None))
+    return y, MoEStats(aux, replicate_like(torch.zeros((), device=y.device), y))
 
 
 # ------------------------------------------------------------- Mamba-2 SSD
@@ -277,6 +634,21 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     four-operand einsums are taken as an elementwise product of the small
     operands first, then one contraction (f32 throughout).
     """
+    if is_dtensor(xh):
+        # heads on `model` (the reference pins xh so), batch on the dp axes
+        heads = [("batch", None, "model", None), ("batch", None, "model"), ("model",),
+                 _batch_dims(Bm), _batch_dims(Cm)]
+        st = ("batch", "model", None, None)
+        B, L, H, P = xh.shape
+        out = [(heads[0], xh.shape), (st, (B, H, P, Bm.shape[3]))]
+        xs = [xh, dt, replicate_like(A, xh), Bm, Cm]
+        # A is whole on every batch shard, Bm and Cm on every model shard,
+        # which uses them in part: their gradients are partial sums there
+        partial = {2: "batch", 3: "model", 4: "model"}
+        if initial_state is None:
+            return _local(lambda *t: ssd_chunked(*t, chunk=chunk), xs, heads, out, partial)
+        return _local(lambda *t: ssd_chunked(*t[:5], chunk=chunk, initial_state=t[5]),
+                      xs + [initial_state], heads + [st], out, partial)
     B, L, H, P = xh.shape
     G, S = Bm.shape[2], Bm.shape[3]
     if L % chunk:
@@ -332,7 +704,10 @@ def mamba_mixer(x, p, cfg: ModelConfig, *, state=None, return_state=False):
     d_in = cfg.d_inner
     conv_dim = d_in + 2 * G * S
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = constrain(x @ p["in_proj"], ("batch", None, "model"))
+    # the split cuts across the model shards: whole rows first (identity
+    # outside a mesh)
+    zxbcdt = constrain(zxbcdt, ("batch", None, None))
     z, xbc, dt = torch.split(zxbcdt, [d_in, conv_dim, zxbcdt.shape[-1] - d_in - conv_dim],
                              dim=-1)
     t = dt.float() + p["dt_bias"]
@@ -342,7 +717,8 @@ def mamba_mixer(x, p, cfg: ModelConfig, *, state=None, return_state=False):
     w = p["conv_w"]                                      # (K, conv_dim)
     K = w.shape[0]
     if state is None:
-        pad = torch.zeros((B, K - 1, conv_dim), dtype=xbc.dtype, device=x.device)
+        pad = replicate_like(torch.zeros((B, K - 1, conv_dim), dtype=xbc.dtype,
+                                         device=x.device), xbc)
         xb_pad = torch.cat([pad, xbc], dim=1)
         new_conv_state = xb_pad[:, -(K - 1):, :] if return_state else None
     else:
@@ -351,7 +727,7 @@ def mamba_mixer(x, p, cfg: ModelConfig, *, state=None, return_state=False):
     conv = sum(xb_pad[:, i:i + L, :] * w[i][None, None, :] for i in range(K)) + p["conv_b"]
     conv = _silu(conv)
 
-    xh = conv[..., :d_in].reshape(B, L, H, P)
+    xh = constrain(conv[..., :d_in].reshape(B, L, H, P), ("batch", None, "model", None))
     Bm = conv[..., d_in:d_in + G * S].reshape(B, L, G, S)
     Cm = conv[..., d_in + G * S:].reshape(B, L, G, S)
     A = -torch.exp(p["A_log"].float())                   # (H,) negative

@@ -15,6 +15,11 @@ Parameters are a dict tree of tensors with the reference's keys, shapes and
 dtypes: ``embed``, ``final_norm``, ``lm_head`` and ``blocks``, a list with
 one dict per position of ``cfg.pattern`` whose leaves are stacked over the
 ``n_super`` super-blocks.  Every function runs on its parameters' device.
+
+Under a mesh (``distributed.ctx.activation_axes``, with ``DTensor``
+parameters placed by ``distributed.sharding``) the activations take the
+reference's sharding constraints at its sites; outside one, ``constrain``
+is the identity and every function runs on plain tensors as before.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from ..core.sampling import resolve_device
+from ..distributed.ctx import constrain, is_dtensor, pin_grad, replicate_like, spec_for
 from . import layers
 from .config import BlockSpec, ModelConfig
 
@@ -106,7 +113,8 @@ def _leaves(tree: Params):
         yield from blk.items()
 
 
-def init_params(seed_or_generator, cfg: ModelConfig, *, device=None) -> Params:
+def init_params(seed_or_generator, cfg: ModelConfig, *, device=None,
+                shardings=None) -> Params:
     """Random parameters by the reference's leaf rules: norms are ones,
     ``A_log = log U[1, 16)``, ``conv_b`` and ``dt_bias`` zeros, ``D`` ones,
     and the rest ``normal * fan_in ** -0.5`` cast to ``cfg.param_dtype``.
@@ -116,6 +124,11 @@ def init_params(seed_or_generator, cfg: ModelConfig, *, device=None) -> Params:
     ``jax.random`` (carry the reference's parameters across with
     ``convert.lm_params_from_numpy``).  The device is CUDA unless the caller
     names one, and the default raises without CUDA.
+
+    ``shardings`` (a ``distributed.sharding.param_shardings`` tree) places
+    each leaf as soon as it is drawn, so a device holds its shards and one
+    whole leaf at a time, never the whole model; the values are those drawn
+    without it.
     """
     dev = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
@@ -138,9 +151,20 @@ def init_params(seed_or_generator, cfg: ModelConfig, *, device=None) -> Params:
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return w.mul_(fan_in ** -0.5).to(dt)
 
+    def leaf(name, meta, sh):
+        t = init_leaf(name, meta)
+        if sh is None:
+            return t
+        from ..distributed.sharding import shard_leaf
+
+        return shard_leaf(t, sh)
+
     shapes = param_shapes(cfg)
-    out = {name: init_leaf(name, shapes[name]) for name in ("embed", "final_norm", "lm_head")}
-    out["blocks"] = [{k: init_leaf(k, m) for k, m in blk.items()} for blk in shapes["blocks"]]
+    sh = shardings or {"blocks": [{} for _ in shapes["blocks"]]}
+    out = {name: leaf(name, shapes[name], sh.get(name))
+           for name in ("embed", "final_norm", "lm_head")}
+    out["blocks"] = [{k: leaf(k, m, sh["blocks"][i].get(k)) for k, m in blk.items()}
+                     for i, blk in enumerate(shapes["blocks"])]
     return out
 
 
@@ -156,12 +180,38 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 # ------------------------------------------------------------------ blocks
+_HDIMS = ("batch", None, "model", None)
+
+
+def _heads(x, B: int, L: int, n: int, hd: int):
+    """(B, L, n*hd) -> (B, L, n, hd) heads, constrained as the reference
+    constrains them in training (prefill and decode take the same layout:
+    the reference leaves those to GSPMD); on a ``DTensor`` the flat product
+    is placed first so that the split keeps each sharded head whole."""
+    if is_dtensor(x):
+        heads_on_model = spec_for((B, L, n, hd), _HDIMS)[2] is not None
+        x = constrain(x, ("batch", None, "model" if heads_on_model else None))
+    return constrain(x.reshape(B, L, n, hd), _HDIMS)
+
+
+def _merge_heads(o):
+    """(B, L, H, hd) -> (B, L, H*hd), placed as ``_heads`` places it, so
+    that the gradient of a product with a head-sharded weight comes back
+    in a layout the split can take."""
+    B, L, n, hd = o.shape
+    x = o.reshape(B, L, n * hd)
+    if is_dtensor(x):
+        heads_on_model = spec_for((B, L, n, hd), _HDIMS)[2] is not None
+        x = pin_grad(constrain(x, ("batch", None, "model" if heads_on_model else None)))
+    return x
+
+
 def _mixer(h, p, spec: BlockSpec, cfg: ModelConfig, positions):
     if spec.mixer == "attn":
         B, L, d = h.shape
-        q = (h @ p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
-        k = (h @ p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+        q = _heads(h @ p["wq"], B, L, cfg.n_heads, cfg.head_dim)
+        k = _heads(h @ p["wk"], B, L, cfg.n_kv_heads, cfg.head_dim)
+        v = _heads(h @ p["wv"], B, L, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = layers.rms_norm(q, p["q_norm"])
             k = layers.rms_norm(k, p["k_norm"])
@@ -171,7 +221,7 @@ def _mixer(h, p, spec: BlockSpec, cfg: ModelConfig, positions):
             q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             causal_skip=cfg.causal_skip,
         )
-        return o.reshape(B, L, cfg.n_heads * cfg.head_dim) @ p["wo"], None
+        return _merge_heads(o) @ p["wo"], None
     out, _ = layers.mamba_mixer(h, p, cfg)
     return out, None
 
@@ -180,12 +230,8 @@ def _ffn(h, p, spec: BlockSpec, cfg: ModelConfig):
     if spec.ffn == "dense":
         return layers.dense_ffn(h, p, cfg), torch.zeros((), dtype=torch.float32,
                                                         device=h.device)
-    if cfg.moe_impl == "a2a":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='a2a' (moe_ffn_a2a, an all-to-all dispatch over a "
-            "device mesh) comes with the port's distribution slice; use "
-            "moe_impl='gather'")
-    y, stats = layers.moe_ffn(h, p, cfg)
+    impl = layers.moe_ffn_a2a if cfg.moe_impl == "a2a" else layers.moe_ffn
+    y, stats = impl(h, p, cfg)
     return y, stats.aux_loss
 
 
@@ -209,18 +255,30 @@ def _super_params(blocks, s: int):
     return _cast_tree([{k: v[s] for k, v in blk.items()} for blk in blocks])
 
 
+def _residual(h, out, dims=("batch", None, None)):
+    """``h + out``, both placed by ``dims`` on a mesh (the reference's
+    constraint of the sum; ``out`` placed first, so that its gradient comes
+    back in its own layout).  Plain ``h + out`` outside a mesh."""
+    return constrain(h + constrain(out, dims), dims)
+
+
 def _super_block(h, blk_params, cfg: ModelConfig, positions):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     # the cast inside the block, as the reference's: under a checkpoint the
     # bf16 copies are recomputed in backward, not kept
     blk_params = _cast_tree(blk_params)
+    hdims = ("batch", "model" if cfg.seq_shard_carry else None, None)
+    # a sequence-sharded carry is gathered whole into each layer (sequence
+    # parallelism); without it, and outside a mesh, ``whole`` is the identity
+    whole = functools.partial(constrain, dims=("batch", None, None))
+    h = constrain(h, hdims)
     for j, spec in enumerate(cfg.pattern):
         p = blk_params[j]
-        mix, _ = _mixer(layers.rms_norm(h, p["norm1"]), p, spec, cfg, positions)
-        h = h + mix
+        mix, _ = _mixer(whole(layers.rms_norm(h, p["norm1"])), p, spec, cfg, positions)
+        h = _residual(h, mix, hdims)
         if spec.ffn != "none":
-            f, a = _ffn(layers.rms_norm(h, p["norm2"]), p, spec, cfg)
-            h = h + f
+            f, a = _ffn(whole(layers.rms_norm(h, p["norm2"])), p, spec, cfg)
+            h = _residual(h, f, hdims)
             aux = aux + a
     return h, aux
 
@@ -310,20 +368,103 @@ def backbone(params: Params, cfg: ModelConfig, h, positions):
     return layers.rms_norm(h, params["final_norm"]), torch.sum(aux)
 
 
+def _embed(table, tokens):
+    """Rows of ``table``.  On a ``DTensor`` table its model dim is gathered
+    whole (an FSDP gather) and each device looks up its batch shard of the
+    tokens; a vocabulary sharded over an axis is looked up in place
+    (vocab-parallel): each device takes the rows in its range, zeros the
+    others, and the rows are summed over that axis."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rows = [Replicate() if pl.is_shard(1) else pl for pl in table.placements]
+    table = table.redistribute(mesh, rows)
+    tokens = replicate_like(tokens, table)
+    vocab = [i for i, pl in enumerate(rows) if pl.is_shard(0)]
+    tok = [Replicate() if i in vocab else pl for i, pl in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, tok)
+    # the table's gradient: a partial sum over the axes that split the batch
+    grad = [Partial() if t.is_shard() else r for t, r in zip(tok, rows)]
+    if not vocab:
+        # a whole vocabulary: the plain lookup on each batch shard
+        return local_map(lambda t, i: t[i], tok, in_placements=(rows, tok),
+                         in_grad_placements=(grad, tok), device_mesh=mesh)(table, tokens)
+    (mi,) = vocab
+    v_loc = table.to_local().shape[0]
+    first = mesh.get_local_rank(mi) * v_loc
+
+    def lookup(t, i):
+        local = i - first
+        here = (local >= 0) & (local < v_loc)
+        part = torch.where(here[..., None], t[local.clamp(0, v_loc - 1)], 0.0)
+        return layers.SumReplicated.apply(part, mesh, mi)
+
+    grad[mi] = Shard(0)
+    return local_map(lookup, tok, in_placements=(rows, tok), in_grad_placements=(grad, tok),
+                     device_mesh=mesh)(table, tokens)
+
+
 def embed_inputs(params: Params, cfg: ModelConfig, tokens, extra_embeds=None):
-    h = params["embed"][tokens].to(COMPUTE)
+    h = _embed(params["embed"], tokens).to(COMPUTE)
     if cfg.frontend_len:
         if extra_embeds is None:
             raise ValueError(f"{cfg.name} needs frontend embeddings")
         h = torch.cat([extra_embeds.to(COMPUTE), h], dim=1)
-    return h
+    return constrain(h, ("batch", None, None))
 
 
 def _ce_chunk(hh, lm_head, yy, mm):
-    logits = (hh @ lm_head).float()
+    logits = constrain((hh @ lm_head).float(), ("batch", None, "model"))
+    if is_dtensor(logits):
+        return _ce_mesh(logits, yy, mm)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, yy[..., None].long())[..., 0]
     return ((lse - gold) * mm).sum()
+
+
+def _ce_mesh(logits, yy, mm):
+    """``_ce_chunk``'s sum on ``DTensor`` logits.  Logits whose vocabulary
+    is whole on each device take the plain ops on their batch shards; a
+    vocabulary sharded over ``model`` is reduced in place (vocab-parallel
+    cross-entropy): the row max and the exp-sums are all-reduced, and each
+    device picks the gold logits that fall in its vocabulary range."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    bat = [Replicate() if pl.is_shard(2) else pl for pl in logits.placements]
+    yy, mm = (constrain(replicate_like(t, logits), ("batch", None)) for t in (yy, mm))
+    vocab = [i for i, pl in enumerate(logits.placements) if pl.is_shard(2)]
+    in_pl = (list(logits.placements), bat, bat)
+    if not vocab:
+        def plain(lg, y, m):
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = lg.gather(-1, y[..., None].long())[..., 0]
+            return (lse - gold) * m
+
+        return local_map(plain, bat, in_placements=in_pl, device_mesh=mesh)(
+            logits, yy, mm).sum()
+    (mi,) = vocab
+    v_loc = logits.to_local().shape[-1]
+    first = mesh.get_local_rank(mi) * v_loc
+    mx_pl = [Partial("max") if i == mi else pl for i, pl in enumerate(bat)]
+    mx = local_map(lambda lg: lg.amax(-1).detach(), mx_pl, in_placements=(in_pl[0],),
+                   device_mesh=mesh)(logits).redistribute(mesh, bat)
+    sum_pl = [Partial() if i == mi else pl for i, pl in enumerate(bat)]
+
+    def partial_sums(lg, m, y):
+        local = y.long() - first
+        here = (local >= 0) & (local < v_loc)
+        gold = lg.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+        return torch.exp(lg - m[..., None]).sum(-1), torch.where(here, gold, 0.0)
+
+    se, gold = local_map(partial_sums, (sum_pl, sum_pl), in_placements=(in_pl[0], bat, bat),
+                         device_mesh=mesh)(logits, mx, yy)
+    lse = mx + torch.log(se.redistribute(mesh, bat))
+    return ((lse - gold.redistribute(mesh, bat)) * mm).sum()
 
 
 def chunked_ce_loss(h, lm_head, labels, mask, chunk: int = 1024):
@@ -335,7 +476,9 @@ def chunked_ce_loss(h, lm_head, labels, mask, chunk: int = 1024):
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, L, chunk):
-        hh, yy, mm = h[:, c:c + chunk], labels[:, c:c + chunk], mask[:, c:c + chunk]
+        # a sequence-sharded hidden state is gathered whole per chunk
+        hh = constrain(h[:, c:c + chunk], ("batch", None, None))
+        yy, mm = labels[:, c:c + chunk], mask[:, c:c + chunk]
         tot, cnt = tot + _checkpoint(_ce_chunk, hh, lm_head, yy, mm), cnt + mm.sum()
     return tot / torch.clamp_min(cnt, 1.0)
 
@@ -352,7 +495,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     tokens = batch["tokens"]
     h = embed_inputs(params, cfg, tokens, batch.get("extra_embeds"))
     B, L, _ = h.shape
-    hidden, aux = backbone(params, cfg, h, _positions(B, L, h.device))
+    # replicated on the activations' mesh when they are DTensors
+    hidden, aux = backbone(params, cfg, h, replicate_like(_positions(B, L, h.device), h))
     labels = batch["labels"]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     if cfg.frontend_len:  # prepend ignore for frontend positions
@@ -403,21 +547,52 @@ def _mixer_decode(h, p, spec, cfg, cache, pos: int):
     a copy of the state's caches); a Mamba layer returns its new state."""
     B = h.shape[0]
     if spec.mixer == "attn":
-        q = (h @ p["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-        k = (h @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+        q = _heads(h @ p["wq"], B, 1, cfg.n_heads, cfg.head_dim)
+        k = _heads(h @ p["wk"], B, 1, cfg.n_kv_heads, cfg.head_dim)
+        v = _heads(h @ p["wv"], B, 1, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             q = layers.rms_norm(q, p["q_norm"])
             k = layers.rms_norm(k, p["k_norm"])
-        posb = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+        posb = replicate_like(torch.full((B, 1), pos, dtype=torch.int32, device=h.device), h)
         q = layers.apply_rope(q, posb, cfg.rope_theta)
         k = layers.apply_rope(k, posb, cfg.rope_theta)
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        _write_row(cache["k"], k[:, 0], pos)
+        _write_row(cache["v"], v[:, 0], pos)
         o = layers.decode_attention(q, cache["k"], cache["v"], pos + 1)
-        out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+        out = _merge_heads(o) @ p["wo"]
         return out, cache
     return layers.mamba_mixer(h, p, cfg, state=cache)
+
+
+def _write_row(cache, row, pos: int):
+    """``cache[:, pos] = row`` in place: (B, Lmax, KVH, hd) <- (B, KVH, hd).
+    A ``DTensor`` cache is written on its local shards (the device whose
+    sequence shard holds ``pos``), the row placed as the cache first."""
+    if not is_dtensor(cache):
+        cache[:, pos] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache.device_mesh
+    # cache dims (B, L, H, hd) -> row dims (B, H, hd); the sequence has none
+    to_row = {0: 0, 2: 1, 3: 2}
+    row_pl = [Shard(to_row[pl.dim]) if pl.is_shard() and pl.dim in to_row else Replicate()
+              for pl in cache.placements]
+    seq = [i for i, pl in enumerate(cache.placements) if pl.is_shard(1)]
+    n_loc = cache.to_local().shape[1]
+    first = 0
+    for i in seq:           # nested sequence shards, in mesh order
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= n_loc
+
+    def write(c, r):
+        if first <= pos < first + c.shape[1]:
+            c[:, pos - first] = r
+        return c
+
+    local_map(write, list(cache.placements), in_placements=(list(cache.placements), row_pl),
+              device_mesh=mesh)(cache, row.redistribute(mesh, row_pl))
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: DecodeState, tokens):
@@ -426,7 +601,7 @@ def decode_step(params: Params, cfg: ModelConfig, state: DecodeState, tokens):
     ``state`` is left as it is: the new state's KV caches are a copy with
     row ``state.pos`` written.
     """
-    h = params["embed"][tokens].to(COMPUTE)
+    h = _embed(params["embed"], tokens).to(COMPUTE)
     pos = state.pos
     caches = [{k: t.clone() for k, t in c.items()} if spec.mixer == "attn" else c
               for spec, c in zip(cfg.pattern, state.caches)]
@@ -441,12 +616,12 @@ def decode_step(params: Params, cfg: ModelConfig, state: DecodeState, tokens):
             p = blk[j]
             mix, nc = _mixer_decode(layers.rms_norm(h, p["norm1"]), p, spec, cfg,
                                     {k: t[s] for k, t in caches[j].items()}, pos)
-            h = h + mix
+            h = _residual(h, mix)
             if spec.mixer != "attn":
                 mamba[j].append(nc)
             if spec.ffn != "none":
                 f, _ = _ffn(layers.rms_norm(h, p["norm2"]), p, spec, cfg)
-                h = h + f
+                h = _residual(h, f)
     for j, states in mamba.items():
         caches[j] = {k: torch.stack([st[k] for st in states]) for k in ("conv", "ssm")}
     h = layers.rms_norm(h, params["final_norm"])
@@ -461,14 +636,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int,
     B, L, _ = h.shape
     if max_len < L:
         raise ValueError(f"max_len {max_len} is shorter than the prompt's {L} positions")
-    positions = _positions(B, L, h.device)
+    positions = replicate_like(_positions(B, L, h.device), h)
     n = _n_super(params["blocks"])
+    # on a mesh the KV rows are padded and stacked (a DTensor takes no
+    # writes into a slice of a sharded buffer)
+    on_mesh = is_dtensor(h)
     caches = []
     for spec in cfg.pattern:
-        if spec.mixer == "attn":
+        if spec.mixer == "attn" and not on_mesh:
             shp = (n, B, max_len, cfg.n_kv_heads, cfg.head_dim)
             caches.append({"k": torch.zeros(shp, dtype=COMPUTE, device=h.device),
                            "v": torch.zeros(shp, dtype=COMPUTE, device=h.device)})
+        elif spec.mixer == "attn":
+            caches.append({"k": [], "v": []})
         else:
             caches.append({"conv": [], "ssm": []})
     for s in range(n):
@@ -477,9 +657,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int,
             p = blk[j]
             hn = layers.rms_norm(h, p["norm1"])
             if spec.mixer == "attn":
-                q = (hn @ p["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
-                k = (hn @ p["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-                v = (hn @ p["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+                q = _heads(hn @ p["wq"], B, L, cfg.n_heads, cfg.head_dim)
+                k = _heads(hn @ p["wk"], B, L, cfg.n_kv_heads, cfg.head_dim)
+                v = _heads(hn @ p["wv"], B, L, cfg.n_kv_heads, cfg.head_dim)
                 if cfg.qk_norm:
                     q = layers.rms_norm(q, p["q_norm"])
                     k = layers.rms_norm(k, p["k_norm"])
@@ -488,18 +668,24 @@ def prefill(params: Params, cfg: ModelConfig, tokens, max_len: int,
                 o = layers.flash_attention(
                     q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk
                 )
-                h = h + o.reshape(B, L, cfg.n_heads * cfg.head_dim) @ p["wo"]
-                caches[j]["k"][s, :, :L] = k
-                caches[j]["v"][s, :, :L] = v
+                h = _residual(h, _merge_heads(o) @ p["wo"])
+                if on_mesh:
+                    pad = (0, 0, 0, 0, 0, max_len - L)
+                    caches[j]["k"].append(F.pad(k, pad).to(COMPUTE))
+                    caches[j]["v"].append(F.pad(v, pad).to(COMPUTE))
+                else:
+                    caches[j]["k"][s, :, :L] = k
+                    caches[j]["v"][s, :, :L] = v
             else:
                 mix, st = layers.mamba_mixer(hn, p, cfg, return_state=True)
-                h = h + mix
+                h = _residual(h, mix)
                 caches[j]["conv"].append(st["conv"].to(COMPUTE))
                 caches[j]["ssm"].append(st["ssm"])
             if spec.ffn != "none":
                 f, _ = _ffn(layers.rms_norm(h, p["norm2"]), p, spec, cfg)
-                h = h + f
-    caches = tuple(c if spec.mixer == "attn" else {k: torch.stack(v) for k, v in c.items()}
+                h = _residual(h, f)
+    caches = tuple(c if spec.mixer == "attn" and not on_mesh
+                   else {k: torch.stack(v) for k, v in c.items()}
                    for spec, c in zip(cfg.pattern, caches))
     h = layers.rms_norm(h, params["final_norm"])
     logits = (h[:, -1, :] @ params["lm_head"].to(COMPUTE)).float()

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.ctx import is_dtensor
 from ..tree import tree_leaves, tree_map
 
 
@@ -60,10 +61,16 @@ def lr_at(cfg: AdamWConfig, step):
 
 
 def init(cfg: AdamWConfig, params) -> OptState:
-    """Zero moments in ``cfg.moment_dtype`` on each parameter's device
-    (``device="meta"`` parameters give an abstract state)."""
+    """Zero moments in ``cfg.moment_dtype`` on each parameter's device, or
+    with each ``DTensor`` parameter's placements (``device="meta"``
+    parameters give an abstract state)."""
     dt = getattr(torch, cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+
+    def zeros(p):
+        if is_dtensor(p):     # the parameter's placements
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
     return OptState(
@@ -73,8 +80,24 @@ def init(cfg: AdamWConfig, params) -> OptState:
     )
 
 
+def _whole(t):
+    """A ``DTensor`` scalar reduced over its mesh (a plain tensor); anything
+    else as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _shard(t, like=None):
+    """The local shard of a ``DTensor`` (placed as ``like`` first, when given),
+    on which in-place updates land; anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
+    leaves = [_whole(torch.sum(torch.square(g.float()))) for g in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -106,15 +129,18 @@ def _update(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c) -> None:
 @torch.no_grad()
 def apply(cfg: AdamWConfig, params, grads, state: OptState):
     """One AdamW update; returns (params, state, stats) with ``params``,
-    the moments and ``state.step`` updated in place."""
+    the moments and ``state.step`` updated in place.  ``DTensor`` leaves are
+    updated on each device's shards (the gradient placed as its parameter
+    first); the global norm is reduced over the mesh."""
     gnorm = global_norm(grads)
     clip = torch.tensor(cfg.clip_norm, dtype=torch.float32, device=gnorm.device)
     scale = torch.clamp(clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    state.step.add_(1)
-    step = state.step.float()
-    lr = lr_at(cfg, state.step)
+    step_t = _shard(state.step)
+    step_t.add_(1)
+    step = step_t.float()
+    lr = lr_at(cfg, step_t)
     b1c = 1.0 - torch.pow(cfg.b1, step)
     b2c = 1.0 - torch.pow(cfg.b2, step)
     for p, g, m, v in zip(*(tree_leaves(t) for t in (params, grads, state.mu, state.nu))):
-        _update(cfg, p, g, m, v, scale, lr, b1c, b2c)
+        _update(cfg, _shard(p), _shard(g, p), _shard(m), _shard(v), scale, lr, b1c, b2c)
     return params, state, {"grad_norm": gnorm, "lr": lr}

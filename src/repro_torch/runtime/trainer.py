@@ -13,12 +13,15 @@ model) -> optimizer, with production behaviours:
     the port's kernels); injected link-degradation events trigger warm
     re-arbitration.
 
-The port has no 2-D mesh until its distribution slice: ``mesh`` is the
-device the trainer runs on (``None`` means CUDA, which raises without it),
-and ``param_shardings`` / ``opt_shardings`` must be ``None``.
+``mesh`` is the device the trainer runs on (``None`` means CUDA, which
+raises without it) or a ``DeviceMesh`` (``launch.mesh``): then
+``param_shardings`` / ``opt_shardings`` (``distributed.sharding``'s trees)
+place the parameters and moments as ``DTensor``s, each batch is placed by
+the batch rules, and every step runs under the mesh's activation axes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -33,11 +36,19 @@ import torch
 from ..checkpoint import store
 from ..configs.wdm import WDM8_G200
 from ..core.sampling import resolve_device
+from ..distributed import sharding
+from ..distributed.ctx import activation_axes, is_dtensor
+from ..launch.mesh import data_axes
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optics import interconnect
 from ..optim import adamw
 from ..tree import tree_map
+
+
+def _whole(t):
+    """A metric as a plain tensor (a ``DTensor`` reduced over its mesh)."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 @dataclasses.dataclass
@@ -73,12 +84,12 @@ class Trainer:
         param_shardings=None,
         opt_shardings=None,
     ):
-        if param_shardings is not None or opt_shardings is not None:
-            raise NotImplementedError(
-                "Trainer: parameter and optimizer shardings over a device mesh come "
-                "with the port's distribution slice; pass None (one device)")
         self.cfg, self.tcfg, self.opt_cfg = cfg, tcfg, opt_cfg
         self.mesh = mesh
+        self.param_shardings, self.opt_shardings = param_shardings, opt_shardings
+        if (param_shardings is not None or opt_shardings is not None) and not self.on_mesh:
+            raise ValueError("Trainer: shardings place tensors on a DeviceMesh; "
+                             f"mesh={mesh!r} is a device")
         self.device  # noqa: B018 -- resolves now: no CUDA and no device named raises
         self.train_step = train_step
         self.fabric: Optional[interconnect.FabricState] = None
@@ -90,9 +101,24 @@ class Trainer:
         self._rng = np.random.default_rng(tcfg.seed)
 
     @property
+    def on_mesh(self) -> bool:
+        return hasattr(self.mesh, "mesh_dim_names")
+
+    @property
     def device(self) -> torch.device:
-        """The device named by ``mesh``; CUDA (checked at each use) if None."""
+        """The device named by ``mesh`` (this rank's, for a ``DeviceMesh``);
+        CUDA (checked at each use) if None."""
+        if self.on_mesh:
+            if self.mesh.device_type == "cuda":
+                return torch.device("cuda", torch.cuda.current_device())
+            return torch.device(self.mesh.device_type)
         return resolve_device(self.mesh)
+
+    def _axes(self):
+        """The mesh's activation axes around a step; nothing off a mesh."""
+        if not self.on_mesh:
+            return contextlib.nullcontext()
+        return activation_axes(self.mesh, dp=data_axes(self.mesh))
 
     # ------------------------------------------------------------ bring-up
     def bringup_fabric(self):
@@ -123,13 +149,19 @@ class Trainer:
         if latest is not None:
             on_device = lambda tree: tree_map(lambda _: self.device, tree)  # noqa: E731
             params = store.restore(self.tcfg.ckpt_dir, latest, abstract_p,
-                                   on_device(abstract_p))
+                                   self.param_shardings or on_device(abstract_p))
             opt_abs = adamw.init(self.opt_cfg, abstract_p)
             opt = store.restore(Path(self.tcfg.ckpt_dir) / "opt", latest, opt_abs,
-                                on_device(opt_abs))
+                                self.opt_shardings or on_device(opt_abs))
             return TrainerState(params=params, opt_state=opt, step=latest)
-        params = M.init_params(self.tcfg.seed, self.cfg, device=self.device)
-        return TrainerState(params=params, opt_state=adamw.init(self.opt_cfg, params), step=0)
+        # each leaf is placed as it is drawn: the device holds the whole of
+        # one leaf at a time, not of the model
+        params = M.init_params(self.tcfg.seed, self.cfg, device=self.device,
+                               shardings=self.param_shardings)
+        opt = adamw.init(self.opt_cfg, params)
+        if self.opt_shardings is not None:
+            opt = sharding.shard_tree(opt, self.opt_shardings)
+        return TrainerState(params=params, opt_state=opt, step=0)
 
     def save(self, state: TrainerState):
         store.save(self.tcfg.ckpt_dir, state.step, state.params)
@@ -140,6 +172,10 @@ class Trainer:
         out = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
         for k in ("tokens", "labels"):
             out[k] = out[k].long()
+        if self.on_mesh:
+            sh = sharding.batch_shardings(self.cfg, self.mesh, "extra_embeds" in out,
+                                          batch=out["tokens"].shape[0])
+            out = sharding.shard_tree(out, {k: sh[k] for k in out})
         return out
 
     def _sync(self):
@@ -155,9 +191,10 @@ class Trainer:
             while state.step < tcfg.total_steps:
                 batch = next(batches)
                 t0 = time.perf_counter()
-                params, opt, metrics = self.train_step(
-                    state.params, state.opt_state, self._to_device(batch)
-                )
+                with self._axes():
+                    params, opt, metrics = self.train_step(
+                        state.params, state.opt_state, self._to_device(batch)
+                    )
                 self._sync()
                 dt = time.perf_counter() - t0
                 state = TrainerState(params=params, opt_state=opt, step=state.step + 1)
@@ -166,8 +203,8 @@ class Trainer:
                 if state.step % tcfg.log_every == 0:
                     self.metrics_log.append(
                         {"step": state.step,
-                         "loss": float(metrics["loss"]),
-                         "grad_norm": float(metrics["grad_norm"]),
+                         "loss": float(_whole(metrics["loss"])),
+                         "grad_norm": float(_whole(metrics["grad_norm"])),
                          "sec_per_step": dt}
                     )
                 if state.step % tcfg.ckpt_every == 0 or self._emergency:

@@ -88,21 +88,29 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_moe_a2a_waits_for_the_distribution_slice():
-    """``moe_impl="a2a"`` (the reference's shard_map all-to-all dispatch)
-    raises, naming its slice, where a MoE layer runs; it never falls back."""
+    """``moe_impl="a2a"`` (the reference's all-to-all dispatch, ported with
+    the distribution slice) falls back to the gather MoE exactly where the
+    reference does, outside a mesh context; under one it never falls back
+    quietly: plain tensors, which have no mesh to split over, raise."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
+    from repro_torch.distributed import ctx, sharding
     from repro_torch.models import layers, model
 
-    assert not hasattr(layers, "moe_ffn_a2a")
+    assert hasattr(layers, "moe_ffn_a2a")
     cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"), moe_impl="a2a")
     params = model.init_params(0, cfg, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        model.prefill(params, cfg, tokens, 8)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        model.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+    gather = dataclasses.replace(cfg, moe_impl="gather")
+    batch = {"tokens": tokens, "labels": tokens}
+    assert torch.equal(model.loss_fn(params, cfg, batch)[0],
+                       model.loss_fn(params, gather, batch)[0])
+    assert torch.equal(model.prefill(params, cfg, tokens, 8)[0],
+                       model.prefill(params, gather, tokens, 8)[0])
+    with ctx.activation_axes(sharding.AbstractMesh((1, 2), ("data", "model"))):
+        with pytest.raises(ValueError, match="DTensor"):
+            model.loss_fn(params, cfg, batch)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
@@ -138,8 +146,9 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_shardings_wait_for_the_distribution_slice(tmp_path):
-    """Parameter or optimizer shardings over a mesh raise, naming the
-    distribution slice; the trainer never ignores them."""
+    """Parameter or optimizer shardings place tensors on a ``DeviceMesh``
+    (the distribution slice): given with a device instead of a mesh they
+    raise; the trainer never ignores them."""
     from repro_torch.configs import get_smoke
     from repro_torch.distributed import steps
     from repro_torch.optim import adamw
@@ -150,7 +159,7 @@ def test_shardings_wait_for_the_distribution_slice(tmp_path):
     tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
     step = steps.make_train_step(cfg, opt, 1)
     for shardings in (({"embed": "cpu"}, None), (None, {"mu": "cpu"})):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             Trainer(cfg, tcfg, opt, "cpu", step, *shardings)
 
 
