@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--seed S] [--profile]
+    python3 chip_smoke.py [--seed S] [--profile | --lm-controls N]
 
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
@@ -44,10 +44,17 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             links, and ``feasibility`` at the same trials; and the
             interconnect's warm-repair tables: ``table_build`` on the
             runtime's 2,016 WDM16 trials with the 2-D (T, N) mask of links
-            100 and 1,007 dead (all-False rows), and ``probe`` on them;
+            100 and 1,007 dead (all-False rows), and ``probe`` on them; and
+            the draw kernel ``threefry`` (``phase_draw_kernel``) against its
+            plain version on the CPU in its three modes (raw words and
+            uniforms bit for bit, normals within ``DRAW_F32_ULP``) on ragged
+            blocks, one of them past counter 2**32;
 3. main     drive each ported path with the launch counts set to 0 just
             before and read just after (each kernel's ``launches`` in the
-            kernels line is its sum over the paths), at 100 x 100 = 10,000
+            kernels line is its sum over the paths; the paths run in the
+            three process groups of ``PHASE_GROUPS``, side by side on the
+            card and beside phase 2, so their own times are taken under
+            that load, the timing phase's alone after them), at 100 x 100 = 10,000
             trials: the paper's LtC path (``evaluate_scheme`` for seq,
             rs_ssm and vtrs_ssm, ``evaluate_policy`` and ``policy_min_tr`` for
             ltc and ltd) at WDM8_G200 natural and permuted and WDM32_G200 natural;
@@ -99,12 +106,18 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             against a longer prefill; internlm2-1.8b and mamba2-130m whole and
             one full-width super-block of qwen3-moe-235b-a22b serving waves
             of prompts, timed, each super-block and a shallow prefill + decode
-            held against the CPU; it launches none of the five kernels); and
+            held against the CPU; its parameters are drawn on the card by the
+            ``threefry`` kernel, the reference's draws from the seed, and it
+            launches none of the five arbitration kernels); and
             the training path (``phase_train``: every smoke config's
             gradients and a 2-microbatch ``make_train_step`` card against
             CPU, internlm2-1.8b whole for 4 ``Trainer`` steps with the
-            fabric's bring-up and repairs on the kernels, a depth-2
-            full-width step against the CPU, a mamba2-130m run split by a
+            fabric's bring-up and repairs on the kernels and its fresh start
+            drawn by ``threefry`` (timed, with its peak), a depth-2
+            full-width step against the CPU, whose every leaf's last 65,536
+            counters the card drew are held against the CPU plain version's
+            (``_draw_hold``: float32 within 4 ulp, bf16 within 1 bf16 ulp;
+            also the bf16 qwen3-moe super-block's), a mamba2-130m run split by a
             checkpoint and resumed, a qwen3-moe-235b-a22b super-block with
             bf16 moments); and the distribution path (``phase_dist``:
             internlm2-1.8b whole through the sharded ``Trainer`` on a one-rank
@@ -119,7 +132,9 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
             (``phase_records``), exactly as counts of 576 trials, and its
             fig21 and fig22 records after their rounding;
 4. timing   each kernel and its plain version alone at WDM8, WDM16 and WDM32
-            (``match`` also at WDM16, TR 4.48, the temporal path's input),
+            (``match`` also at WDM16, TR 4.48, the temporal path's input;
+            ``threefry`` at one super-block of internlm2-1.8b's ``wq`` and at
+            its whole embedding, ``draw_timing``),
             beside its bound: the kernel's device time per launch from a
             ``torch.profiler`` trace, the wrapper's time per call from CUDA
             events over back-to-back calls (which holds the host's cost of
@@ -237,11 +252,54 @@ MESH_CHAOS = ("mid-linkflap", "vtrs_ssm", 24)   # 48 links in 2 chunks of 24
 LM_CELLS = (("internlm2-1.8b", None, ((4, 2048), (2, 256)), 32, 2),
             ("mamba2-130m", None, ((4, 2048), (2, 256)), 32, None),
             ("qwen3-moe-235b-a22b", 1, ((4, 512),), 8, None))
+#: The path phases of step 3 in groups, each group one process of its own
+#: (``--group``) beside the others on the card: the host-bound paths take
+#: most of the script's time, and the host's speed moves it up to 2x.  A
+#: phase needs only phases before it in its group; ``chaos`` runs in two
+#: (``phase_mesh`` and ``phase_obs`` both hold its runs) and counts once.
+PHASE_GROUPS = {
+    "timelines": ("temporal", "chaos", "campaign", "obs"),
+    "grids": ("main", "sweep", "fabric", "chaos", "interconnect", "mesh"),
+    "models": ("lta", "protocol", "lm", "train", "dist"),
+}
+GROUP_RESULT = "[group result] "
 LM_TOL = 2e-2                        # card against CPU, rtol and atol
 LM_SPREAD_X = 2.0                    # full width: within 2 x a perturbation's spread
+#: Super-blocks: each token's difference within 1.5 x the spread of the
+#: CPU's block under a bf16 rounding of its input (``_lm_layers``).  On an
+#: H100, sound runs read 0.45-0.86 at seeds 0-7 and a 2^-6 change of one
+#: ``w_gate`` or ``in_proj`` leaf 1.73-18.9 (``--lm-controls 8``, PERF.md
+#: section 6).
+LM_BLOCK_X = 1.5
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+#: The draw kernel (``kernels/threefry.py``): the most elements of a leaf
+#: drawn again on the CPU for the card-against-CPU hold; the float32
+#: operations of one normal draw (uniform 4, ``x * -x`` 2, ``log1p`` 31,
+#: ``erf_inv`` 19 and the two products; an FMA counts 2); the largest gaps
+#: allowed between the card's draws and the CPU's, in float32 and bf16 ulps.
+DRAW_HOLD = 65536
+NORMAL_FLOPS = 57
+DRAW_F32_ULP = 4
+DRAW_BF16_ULP = 1
+
+
+def host_launch_us(n: int = 20000) -> float:
+    """The host's microseconds for one tiny CUDA op, launched and
+    synchronised once at the end: the unit the host-bound phases are paid
+    in, which differs between hosts and moves the script's wall time."""
+    import torch
+
+    x = torch.zeros(8, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def fail(msg: str) -> None:
@@ -320,6 +378,21 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ulp_gap(got, want) -> int:
+    """The largest distance between two float32 (or bf16) CPU tensors in
+    ulps of their type, by their order-preserving integer images."""
+    import torch
+
+    width = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+    sign = 1 << (8 * got.element_size() - 1)
+
+    def ordered(t):
+        i = t.contiguous().view(width).long()
+        return torch.where(i < 0, -(i & (sign - 1)), i)
+
+    return int((ordered(got) - ordered(want)).abs().max()) if got.numel() else 0
 
 
 def feasibility_cost(t: int, n: int) -> tuple[float, float]:
@@ -480,16 +553,22 @@ def timed_call(fn):
     return out, (time.perf_counter() - t0) * 1e3, masked_research.launches - n0
 
 
+#: The five kernels of the arbitration paths (the TPU kernels' ports); the
+#: sixth, ``threefry``, draws the LM's parameters and runs on no other path.
+ARBITRATION_KERNELS = ("feasibility", "table_build", "match", "bottleneck", "probe")
+
+
 def reset_launches() -> dict:
     """Every kernel wrapper, its launch count set to 0."""
     from repro_torch.kernels.bitmask_match import bottleneck_threshold, perfect_matching
     from repro_torch.kernels.feasibility import feasibility
     from repro_torch.kernels.probe import masked_research
     from repro_torch.kernels.table_build import build_tables
+    from repro_torch.kernels.threefry import threefry_draw
 
     wrappers = {"feasibility": feasibility, "table_build": build_tables,
                 "match": perfect_matching, "bottleneck": bottleneck_threshold,
-                "probe": masked_research}
+                "probe": masked_research, "threefry": threefry_draw}
     for w in wrappers.values():
         w.launches = 0
     return wrappers
@@ -1414,8 +1493,8 @@ def phase_sweep(seed: int, store: dict | None = None) -> dict:
         peak[name] = torch.cuda.max_memory_allocated() - base
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"[sweep] launches on the sweep path: {launches}")
-    for k, w in launches.items():
-        if w == 0:
+    for k in ARBITRATION_KERNELS:
+        if launches[k] == 0:
             fail(f"kernel {k} was not launched on the sweep path")
 
     t = N_SIDE * N_SIDE
@@ -1737,6 +1816,95 @@ def phase_fabric_kernels(seed: int) -> dict:
         print(f"[kernels] probe runtime fabric C={c}: T={wl.shape[0]} exact (the dead "
               f"links' {len(dead_rows)} rows of empty tables, none found)")
     return {key: max(v) for key, v in errs.items()}
+
+
+def phase_draw_kernel(seed: int) -> float:
+    """The draw kernel (``threefry_draw``) against its plain version on the
+    CPU in each of its three modes (raw words, uniform [1, 16), normal times
+    2048 ** -0.5), on ragged blocks: a whole 1,000,003-element vector, a
+    block of a (3, 1031, 997) tensor, one of a 4-D (2, 5, 129, 67) tensor,
+    and the last 11 rows of a (70001, 70001) tensor, whose counters pass
+    2**32 (the high counter word).  Raw words and uniforms bit for bit,
+    normals within ``DRAW_F32_ULP``.  Returns the max |diff|."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import (
+        BITS,
+        NORMAL,
+        NORMAL_LO,
+        UNIFORM,
+        threefry_draw,
+        threefry_plain,
+    )
+
+    t0 = time.perf_counter()
+    cases = (((1_000_003,), None, None),
+             ((3, 1031, 997), (1, 17, 5), (2, 1000, 991)),
+             ((2, 5, 129, 67), (1, 1, 3, 0), (1, 4, 125, 67)),
+             ((70_001, 70_001), (69_990, 0), (11, 70_001)))
+    modes = ((BITS, {}), (UNIFORM, dict(lo=1.0, hi=16.0)),
+             (NORMAL, dict(lo=NORMAL_LO, hi=1.0, scale=2048 ** -0.5)))
+    errs, gap, n_diff, n = [], 0, 0, 0
+    for key, (shape, start, length) in zip(prng.split(prng.key_from_seed(seed + 26), 4), cases):
+        length = shape if length is None else length
+        for mode, kw in modes:
+            want = threefry_plain(key, shape, start, length, mode=mode, **kw)
+            got = threefry_draw(torch.empty(length, dtype=want.dtype, device="cuda"), key,
+                                shape, start, mode=mode, **kw)
+            torch.cuda.synchronize()
+            name = f"threefry mode {mode} {shape} block {start} + {length}"
+            if mode != NORMAL:
+                compare(name, got, want, errs)
+                continue
+            got = got.cpu()
+            g = ulp_gap(got, want)
+            if not g <= DRAW_F32_ULP or not torch.isfinite(got).all():
+                fail(f"{name}: {g} ulp from the plain version (bound {DRAW_F32_ULP})")
+            errs.append(float((got.double() - want.double()).abs().max()))
+            gap, n_diff, n = max(gap, g), n_diff + int((bits(got) != bits(want)).sum()), \
+                n + got.numel()
+    print(f"[draw] kernel against its plain version on the CPU, 3 modes x 4 ragged blocks: "
+          f"raw words and uniforms bit for bit; normals {n_diff} of {n} elements differ, "
+          f"largest gap {gap} ulp (bound {DRAW_F32_ULP}); max |diff| {max(errs)!r}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return max(errs)
+
+
+def draw_timing(seed: int) -> tuple:
+    """The draw kernel's times at the main path's shapes: one super-block of
+    internlm2-1.8b's stacked ``wq`` (2,048 x 2,048 normals: the block a
+    rank draws at a (2, 2048, 2048) leaf's second index) for the kernels
+    line, beside its bound (4 bytes an element written; ``NORMAL_FLOPS``
+    float32 operations an element) and its plain version on the CPU (one
+    call, host clock); and the whole (92544, 2048) embedding by CUDA events
+    only."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import NORMAL, NORMAL_LO, threefry_draw, threefry_plain
+
+    key = prng.key_from_seed(seed)
+    kw = dict(mode=NORMAL, lo=NORMAL_LO, hi=1.0, scale=2048 ** -0.5)
+    shape, start, length = (2, 2048, 2048), (1, 0, 0), (1, 2048, 2048)
+    out = torch.empty(length, device="cuda")
+    fn = lambda: threefry_draw(out, key, shape, start, **kw)  # noqa: E731
+    ms, call_ms = device_ms(fn, 20, "threefry_kernel"), cuda_ms(fn, 20)
+    t0 = time.perf_counter()
+    threefry_plain(key, shape, start, length, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n = math.prod(length)
+    bound, by = bound_ms(4 * n, NORMAL_FLOPS * n)
+    emb = torch.empty((92544, 2048), device="cuda")
+    emb_ms = cuda_ms(lambda: threefry_draw(emb, key, emb.shape, **kw), 5)
+    emb_bound, emb_by = bound_ms(4 * emb.numel(), NORMAL_FLOPS * emb.numel())
+    print(f"[time] threefry normal {length} of {shape}: kernel {ms!r} ms on the device, "
+          f"{call_ms!r} ms per wrapper call, plain {plain_ms!r} ms (CPU), bound {bound!r} ms "
+          f"({by}); the (92544, 2048) embedding: {emb_ms!r} ms a call, bound {emb_bound!r} ms "
+          f"({emb_by})")
+    del emb, out
+    torch.cuda.empty_cache()
+    return ms, call_ms, plain_ms, bound, by
 
 
 def _hold_links(name, got, want):
@@ -2276,8 +2444,8 @@ def phase_mesh(seed: int, sweeps: dict, fabric: dict, chaos: dict) -> dict:
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"[mesh] launches on the mesh path: {launches}")
-    for k, n in launches.items():
-        if n == 0:
+    for k in ARBITRATION_KERNELS:
+        if launches[k] == 0:
             fail(f"kernel {k} was not launched on the mesh path")
 
     for what, label, got, want, mesh_ms, ms in runs:
@@ -2700,13 +2868,37 @@ def _lm_gap(params, cfg, tokens, max_len, extra=None):
     return _lm_diff(f"{cfg.name} decode against prefill", dec, full)
 
 
-def _lm_layers(name, cfg, cpu, card, tokens):
-    """Each super-block on the card against the CPU on the same input (the
-    CPU's hidden state), within ``LM_TOL`` x |h| + ``LM_TOL`` x rms(h), and
-    the head (final norm, ``lm_head``) within ``LM_TOL``: no amplification
-    across layers.  Returns the worst block's max |diff| / max |h|."""
+def _lm_block_ratio(name, cfg, blk, card_blk, h, pos, seed):
+    """One super-block on the card and on the CPU, on the CPU's input ``h``:
+    (the largest over tokens of |card - CPU| / |noised - CPU|, the CPU's
+    output), each norm over the token's features, where "noised" is the
+    CPU's block on ``h`` with every entry scaled by 1 + e 2^-8 (e uniform
+    in [-1, 1) by ``seed``) and rounded back to bf16: a rounding of the
+    input, whose effect on each token (an MoE gate near a tie, cancellation
+    in a sum) is the scale the card's own rounding is held to."""
     import torch
 
+    from repro_torch.models import model as M
+
+    hc, _ = M._super_block(h, blk, cfg, pos)
+    g = torch.Generator().manual_seed(seed)
+    e = torch.rand(h.shape, generator=g) * 2 - 1
+    hn, _ = M._super_block((h.float() * (1 + e * 2 ** -8)).to(h.dtype), blk, cfg, pos)
+    hg, _ = M._super_block(h.cuda(), card_blk, cfg, pos.cuda())
+    _lm_diff(name, hg, hc)
+    c = hc.float()
+    err = (hg.float().cpu() - c).norm(dim=-1)
+    spread = (hn.float() - c).norm(dim=-1)
+    ratio = torch.where(spread > 0, err / spread, torch.where(err > 0, math.inf, 0.0))
+    return float(ratio.max()), hc
+
+
+def _lm_layers(name, cfg, cpu, card, tokens, seed):
+    """Each super-block on the card against the CPU on the same input (the
+    CPU's hidden state), every token within ``LM_BLOCK_X`` x the spread of
+    a bf16 rounding of that input (``_lm_block_ratio``); the head (final
+    norm, ``lm_head``) within ``LM_TOL``: no amplification across layers.
+    Returns the worst block's ratio."""
     from repro_torch.models import layers
     from repro_torch.models import model as M
 
@@ -2714,11 +2906,13 @@ def _lm_layers(name, cfg, cpu, card, tokens):
     pos = M._positions(*tokens.shape, "cpu")
     worst = 0.0
     for s in range(M._n_super(cpu["blocks"])):
-        hc, _ = M._super_block(h, M._super_params(cpu["blocks"], s), cfg, pos)
-        hg, _ = M._super_block(h.cuda(), M._super_params(card["blocks"], s), cfg, pos.cuda())
-        scale = float(hc.float().pow(2).mean().sqrt())
-        err = _lm_hold(f"{name} super-block {s}", hg, hc, atol=LM_TOL * scale)
-        worst = max(worst, err / float(hc.float().abs().max()))
+        ratio, hc = _lm_block_ratio(f"{name} super-block {s}", cfg,
+                                    M._super_params(cpu["blocks"], s),
+                                    M._super_params(card["blocks"], s), h, pos, seed + s)
+        if not ratio <= LM_BLOCK_X:
+            fail(f"{name} super-block {s}: a token's |card - CPU| is {ratio!r} x its spread "
+                 f"under a bf16 rounding of the block's input, past {LM_BLOCK_X}")
+        worst = max(worst, ratio)
         h = hc
     head_c = (layers.rms_norm(h, cpu["final_norm"]) @ cpu["lm_head"].to(M.COMPUTE)).float()
     head_g = (layers.rms_norm(h.cuda(), card["final_norm"]) @ card["lm_head"].to(M.COMPUTE))
@@ -2752,10 +2946,11 @@ class _MoEStatsTap:
 def phase_lm(seed: int) -> dict:
     """The LM serving path (``repro_torch.models``) on the card, with the
     launch counts set to 0 just before and read just after (it runs none of
-    the five kernels: the reference computes its LM with XLA ops).
+    the five arbitration kernels: the reference computes its LM with XLA
+    ops; its parameters are drawn on the card by ``threefry``).
 
-    1. Each smoke config (``configs.get_smoke``), initialised on the CPU and
-       copied to the card: ``loss_fn`` (B 2, L 32), ``prefill`` (B 2, L 16,
+    1. Each smoke config (``configs.get_smoke``), drawn on the card and
+       copied to the CPU: ``loss_fn`` (B 2, L 32), ``prefill`` (B 2, L 16,
        ``extra_embeds`` for the frontend arch, max_len L + frontend + 8) and
        3 ``decode_step``s fed the CPU's greedy tokens, card against the CPU
        plain path within ``LM_TOL``; decode after prefill against a longer
@@ -2770,7 +2965,9 @@ def phase_lm(seed: int) -> dict:
        CPU's hidden state (``_lm_layers``), and ``prefill`` + 3 decode steps
        at B 1, L 64 (16 for the MoE cell) at the depth the cell names.
        Full-width differences are held to the spread of a bf16-sized
-       perturbation (``_lm_within_spread``), measured in the same run.
+       perturbation (``_lm_within_spread``), and super-blocks to that of a
+       bf16 rounding of their input (``_lm_block_ratio``), both measured in
+       the same run.
     """
     import dataclasses
     import gc
@@ -2785,8 +2982,8 @@ def phase_lm(seed: int) -> dict:
     worst = 0.0
     for arch in ARCH_IDS:
         cfg = get_smoke(arch)
-        cpu = M.init_params(seed, cfg, device="cpu")
-        card = _lm_tree(cpu, lambda t: t.cuda())
+        card = M.init_params(seed, cfg)
+        cpu = _lm_tree(card, lambda t: t.cpu())
         gen = torch.Generator().manual_seed(seed + 1)
         tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
         extra = (torch.randn((2, cfg.frontend_len, cfg.d_model), generator=gen) * 0.02
@@ -2875,7 +3072,9 @@ def phase_lm(seed: int) -> dict:
         length = 16 if cfg.n_experts else 64
         tokens = torch.randint(0, cfg.vocab, (1, length),
                                generator=torch.Generator().manual_seed(seed + 3))
-        layer_rel = _lm_layers(arch, cfg, cpu, params, tokens)
+        t_layers = time.perf_counter()
+        layer_x = _lm_layers(arch, cfg, cpu, params, tokens, seed + 6)
+        t_layers = time.perf_counter() - t_layers
         ccfg, ccpu, ccard = cfg, cpu, params
         if cpu_depth is not None:
             ccfg = dataclasses.replace(cfg, n_layers=cpu_depth * len(cfg.pattern))
@@ -2887,8 +3086,9 @@ def phase_lm(seed: int) -> dict:
         err = _lm_diff(f"{arch} card against CPU", got, want)
         spread = _lm_diff(f"{arch} perturbed CPU", moved, want)
         _lm_within_spread(f"{arch} card against CPU, {ccfg.n_layers} layers", err, spread)
-        print(f"[lm] {arch} card against CPU: every super-block on the CPU's input within "
-              f"{LM_TOL} (worst max |diff| / max |h| {layer_rel!r}), head within {LM_TOL}; "
+        print(f"[lm] {arch} card against CPU: every super-block on the CPU's input, each "
+              f"token within {LM_BLOCK_X} x its spread under a bf16 rounding of that input "
+              f"(worst {layer_x!r}; {t_layers:.1f} s), head within {LM_TOL}; "
               f"{ccfg.n_layers} layers, B 1, L {length}, prefill and 3 decode steps: max "
               f"|diff| {err!r}, the CPU's own under a bf16-sized perturbation {spread!r}; "
               f"cell {time.perf_counter() - t_cell:.1f} s")
@@ -2896,10 +3096,63 @@ def phase_lm(seed: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     launches = {k: w.launches for k, w in wrappers.items()}
-    if any(launches.values()):
-        fail(f"the LM path launched kernels it does not run: {launches}")
+    if not launches["threefry"] or any(launches[k] for k in ARBITRATION_KERNELS):
+        fail(f"the LM path launched arbitration kernels it does not run, or drew its "
+             f"parameters without the draw kernel: {launches}")
     print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _tail_block(shape, limit: int = DRAW_HOLD) -> tuple[tuple, tuple]:
+    """The last counters of a tensor of ``shape`` as a block (start, length)
+    of at most ``limit`` elements: whole trailing dimensions where they fit,
+    the last rows of the first one that does not, the last index before."""
+    start, length = [], []
+    for i, d in enumerate(shape):
+        inner = math.prod(shape[i + 1:])
+        if inner * d <= limit:
+            return tuple(start) + (0,) * (len(shape) - i), tuple(length) + tuple(shape[i:])
+        n = max(1, min(d, limit // inner))
+        start.append(d - n)
+        length.append(n)
+        if inner <= limit:
+            return tuple(start) + (0,) * (len(shape) - i - 1), tuple(length) + shape[i + 1:]
+    return tuple(start), tuple(length)
+
+
+def _draw_hold(label: str, params, cfg, seed) -> None:
+    """Every leaf of a card draw (``init_params(seed, cfg)`` on the card)
+    against the CPU plain version of the same counters: the leaf's last
+    ``DRAW_HOLD`` counters (``_tail_block``) drawn again on the CPU by
+    ``init_leaf``.  Ones and zeros exact, float32 leaves within
+    ``DRAW_F32_ULP``, bf16 leaves within ``DRAW_BF16_ULP``."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    gaps, worst_abs, n = {}, 0.0, 0
+    for (name, leaf), (kname, key) in zip(M._leaves(params), M._leaves(M.leaf_keys(seed, cfg))):
+        if name != kname:
+            fail(f"{label}: leaf {name} against key {kname}")
+        shape = tuple(leaf.shape)
+        start, length = _tail_block(shape)
+        got = leaf[tuple(slice(a, a + m) for a, m in zip(start, length))].cpu()
+        want = M.init_leaf(name, shape, leaf.dtype, key, start=start, length=length,
+                           device="cpu")
+        gap = ulp_gap(got, want)
+        bound = 0 if ("norm" in name or name in ("D", "conv_b", "dt_bias")) else \
+            DRAW_BF16_ULP if leaf.dtype == torch.bfloat16 else DRAW_F32_ULP
+        if not gap <= bound or not torch.isfinite(got).all():
+            fail(f"{label}: {name} {shape} drawn on the card is {gap} ulp from the CPU's draw "
+                 f"of counters {start} + {length} (bound {bound})")
+        key_dt = str(leaf.dtype).replace("torch.", "")
+        gaps[key_dt] = max(gaps.get(key_dt, 0), gap)
+        worst_abs = max(worst_abs, float((got.double() - want.double()).abs().max()))
+        n += got.numel()
+    print(f"[draw] {label}: every leaf's last counters (at most {DRAW_HOLD} a leaf, {n} in "
+          f"all) drawn on the card against the CPU plain version: largest gap in ulps by "
+          f"dtype {gaps}, max |diff| {worst_abs!r}; {time.perf_counter() - t0:.1f} s")
 
 
 #: The training phase (``phase_train``): smoke steps at (B, L); internlm2-1.8b
@@ -2994,9 +3247,9 @@ def phase_train(seed: int) -> dict:
     ``data.pipeline``, ``runtime.trainer``) on the card, with the launch
     counts set to 0 just before and read just after: the trainer's fabric
     bring-up and link repairs launch ``feasibility``, ``table_build`` and
-    ``probe``.
+    ``probe``, and its fresh start ``threefry``.
 
-    1. Each smoke config, initialised on the CPU and copied to the card: the
+    1. Each smoke config, drawn on the card and copied to the CPU: the
        loss and every gradient leaf of ``loss_fn`` at ``TRAIN_SMOKE_BATCH``,
        then one ``make_train_step(n_microbatch=2)``: loss within ``LM_TOL``,
        gradients and moments within ``TRAIN_GRAD_TOL`` of each leaf's max
@@ -3044,8 +3297,8 @@ def phase_train(seed: int) -> dict:
     worst = 0.0
     for arch in ARCH_IDS:
         cfg = get_smoke(arch)
-        cpu = M.init_params(seed, cfg, device="cpu")
-        card = _lm_tree(cpu, lambda t: t.cuda())
+        card = M.init_params(seed, cfg)
+        cpu = _lm_tree(card, lambda t: t.cpu())
         gen = torch.Generator().manual_seed(seed + 1)
         b, length = TRAIN_SMOKE_BATCH
         tokens = torch.randint(0, cfg.vocab, (b, length), generator=gen)
@@ -3103,7 +3356,11 @@ def phase_train(seed: int) -> dict:
             first_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             state = trainer.init_state()
+            torch.cuda.synchronize()
+            init_ms = (time.perf_counter() - t0) * 1e3
+            init_peak = torch.cuda.max_memory_allocated()
             state = trainer.fit(state, itertools.chain([first], batches))
             torch.cuda.synchronize()
         finally:
@@ -3127,7 +3384,9 @@ def phase_train(seed: int) -> dict:
     print(f"[train] internlm2-1.8b {cfg.n_layers} layers, Trainer seed {TRAIN_FABRIC_SEED}: "
           f"fabric bring-up {bring_ms!r} ms ({len(fabric.links)} links, {bring_rounds} repair "
           f"rounds, bandwidth fraction {fabric.bandwidth_fraction!r}); "
-          f"first batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens {first_ms!r} ms")
+          f"first batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens {first_ms!r} ms; fresh start "
+          f"(init_state: the draw kernel and zero moments) {init_ms!r} ms, peak {init_peak} "
+          f"bytes allocated")
     for m in trainer.metrics_log:
         print(f"[train] internlm2-1.8b step {m['step']}: {m['sec_per_step']!r} s/step, "
               f"{tokens / m['sec_per_step']!r} tokens/s, grad_norm {m['grad_norm']!r}, "
@@ -3147,6 +3406,7 @@ def phase_train(seed: int) -> dict:
     t_cell = time.perf_counter()
     cfg2 = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2)
     card = M.init_params(seed, cfg2)
+    _draw_hold("internlm2-1.8b depth 2", card, cfg2, seed)
     cpu = _lm_tree(card, lambda t: t.cpu())
     moved = _lm_tree(_lm_perturbed(card, seed + 5), lambda t: t.cpu())
     tokens = torch.randint(0, cfg2.vocab, (1, 64), generator=torch.Generator().manual_seed(seed))
@@ -3234,6 +3494,7 @@ def phase_train(seed: int) -> dict:
     cfg = dataclasses.replace(get_config(arch), n_layers=1)
     opt_cfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=n_steps, moment_dtype=cfg.moment_dtype)
     params = M.init_params(seed, cfg)
+    _draw_hold(f"{arch} 1 super-block", params, cfg, seed)
     opt = adamw.init(opt_cfg, params)
     step = steps.make_train_step(cfg, opt_cfg, 2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3257,7 +3518,7 @@ def phase_train(seed: int) -> dict:
     torch.cuda.empty_cache()
 
     launches = {k: w.launches for k, w in wrappers.items()}
-    missed = [k for k in ("feasibility", "table_build", "probe") if not launches[k]]
+    missed = [k for k in ("feasibility", "table_build", "probe", "threefry") if not launches[k]]
     if missed:
         fail(f"the training path launched no {missed}: {launches}")
     print(f"[train] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
@@ -3290,7 +3551,8 @@ def phase_dist(seed: int) -> dict:
     ``hlo_walk`` / ``analysis``, ``launch.mesh`` / ``dryrun``, the sharded
     ``Trainer``, ``moe_ffn_a2a``) on the card, with the launch counts set to
     0 just before and read just after: the sharded Trainer's fabric bring-up
-    and repairs launch ``feasibility``, ``table_build`` and ``probe``.
+    and repairs launch ``feasibility``, ``table_build`` and ``probe``, and
+    its fresh start ``threefry`` (each rank drawing its own blocks).
 
     a. A one-rank process group (NCCL for the card, gloo for the CPU; this
        phase creates it and destroys it) and ``make_host_mesh()``, a 1 x 1
@@ -3497,7 +3759,7 @@ def phase_dist(seed: int) -> dict:
         dist.destroy_process_group()
 
     launches = {k: w.launches for k, w in wrappers.items()}
-    missed = [k for k in ("feasibility", "table_build", "probe") if not launches[k]]
+    missed = [k for k in ("feasibility", "table_build", "probe", "threefry") if not launches[k]]
     if missed:
         fail(f"the distribution path launched no {missed}: {launches}")
     print(f"[dist] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
@@ -3714,6 +3976,55 @@ def _trace(label: str, call, cold_ms: float, walls: list) -> None:
         print(f"[profile]   {dev_us / 1e3!r} ms in {count} x {key[:90]}")
 
 
+def phase_lm_controls(n_seeds: int) -> None:
+    """``--lm-controls N``: the readings behind ``LM_BLOCK_X``.  For each
+    serving cell (``LM_CELLS``) at seeds 0 .. N - 1, drawn and tokenised as
+    ``phase_lm`` does: the sound card's worst super-block ratio
+    (``_lm_layers``, which fails past the bound), then super-block 0's
+    ratio with the card's parameters faulted: every leaf x (1 + 2^-6), and
+    one leaf (the router, else a gate, else the first matrix) x (1 + 2^-4)
+    and x (1 + 2^-6).  A fault whose ratio passes ``LM_BLOCK_X`` is one
+    the check catches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    def scaled(blk, f, only=None):
+        return [{k: v * f if only in (None, k) else v for k, v in d.items()} for d in blk]
+
+    for arch, depth, _, _, _ in LM_CELLS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth * len(cfg.pattern))
+        for seed in range(n_seeds):
+            card = M.init_params(seed, cfg)
+            cpu = _lm_tree(card, lambda t: t.cpu())
+            length = 16 if cfg.n_experts else 64
+            tokens = torch.randint(0, cfg.vocab, (1, length),
+                                   generator=torch.Generator().manual_seed(seed + 3))
+            sound = _lm_layers(arch, cfg, cpu, card, tokens, seed + 6)
+            h = M.embed_inputs(cpu, cfg, tokens)
+            pos = M._positions(*tokens.shape, "cpu")
+            blk, card_blk = (M._super_params(p["blocks"], 0) for p in (cpu, card))
+            mats = [k for k, v in card_blk[0].items() if v.dim() >= 2]
+            one = next((k for k in mats if "router" in k or "gate" in k), mats[0])
+            faults = {"every leaf x (1 + 2^-6)": scaled(card_blk, 1 + 2 ** -6),
+                      f"{one} x (1 + 2^-4)": scaled(card_blk, 1 + 2 ** -4, one),
+                      f"{one} x (1 + 2^-6)": scaled(card_blk, 1 + 2 ** -6, one)}
+            read = {label: _lm_block_ratio(f"{arch} {label}", cfg, blk, faulted, h, pos,
+                                           seed + 6)[0]
+                    for label, faulted in faults.items()}
+            print(f"[controls] {arch} seed {seed}: sound worst {sound!r} (bound {LM_BLOCK_X}); "
+                  f"super-block 0 faulted {read!r}", flush=True)
+            del card, cpu, faults
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def phase_profile(seed: int) -> None:
     """Where the time goes (``--profile``).  ``evaluate_scheme`` for
     protocol_lta at TR 8.96 and protocol_lta_h1 at fig19's TR 3.436 (WDM8
@@ -3780,12 +4091,96 @@ def phase_profile(seed: int) -> None:
            f"2 microbatches", call, cold_ms, [timed_call(call)[1] for _ in range(3)])
 
 
+def run_group(name: str, seed: int) -> int:
+    """``--group NAME``: the phases of ``PHASE_GROUPS[name]`` in order, then
+    their launches, a JSON object by phase on a line of its own."""
+    runs = {k: {} for k in ("temporal", "sweep", "fabric", "chaos")}
+    phases = {
+        "main": phase_main, "lta": phase_lta, "protocol": phase_protocol,
+        "temporal": lambda s: phase_temporal(s, N_SIDE, runs["temporal"]),
+        "sweep": lambda s: phase_sweep(s, runs["sweep"]),
+        "fabric": lambda s: phase_fabric(s, runs["fabric"]),
+        "chaos": lambda s: phase_chaos(s, runs["chaos"]),
+        "interconnect": phase_interconnect,
+        "campaign": lambda s: phase_campaign(s, runs["temporal"]),
+        "mesh": lambda s: phase_mesh(s, runs["sweep"], runs["fabric"], runs["chaos"]),
+        "obs": lambda s: phase_obs(s, runs["temporal"], runs["chaos"]),
+        "lm": phase_lm, "train": phase_train, "dist": phase_dist,
+    }
+    import torch
+
+    launches = {}
+    for phase in PHASE_GROUPS[name]:
+        t_phase = time.perf_counter()
+        launches[phase] = phases[phase](seed)
+        # the groups share the card's memory: hand back what the phase cached
+        torch.cuda.empty_cache()
+        print(f"[env] phase {phase} {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(GROUP_RESULT + json.dumps(launches))
+    return 0
+
+
+def start_groups(seed: int) -> dict:
+    """One process for each of ``PHASE_GROUPS``, its output to a log under
+    ``build/chip_smoke``: {name: (process, log path)}."""
+    logs = ROOT / "build" / "chip_smoke"
+    logs.mkdir(parents=True, exist_ok=True)
+    groups = {}
+    for name in PHASE_GROUPS:
+        path = logs / f"{name}.log"
+        with open(path, "w") as out:
+            groups[name] = (subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--group", name,
+                 "--seed", str(seed)], stdout=out, stderr=subprocess.STDOUT, cwd=ROOT), path)
+    return groups
+
+
+def finish_groups(groups: dict) -> dict:
+    """Wait for the groups, print each one's output as it ends, and fail as
+    soon as one fails; each kernel's launches summed over the paths (a
+    phase run in two groups counted once)."""
+    per_phase, pending = {}, dict(groups)
+    while pending:
+        for name, (proc, path) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            del pending[name]
+            text = path.read_text()
+            print(text, end="" if text.endswith("\n") else "\n", flush=True)
+            if proc.returncode != 0:
+                fail(f"phase group {name} exited with {proc.returncode}")
+            result = [line for line in text.splitlines() if line.startswith(GROUP_RESULT)]
+            if not result:
+                fail(f"phase group {name} printed no result")
+            for phase, counts in json.loads(result[-1][len(GROUP_RESULT):]).items():
+                per_phase.setdefault(phase, counts)
+        time.sleep(0.5)
+    missing = {p for g in PHASE_GROUPS.values() for p in g} - set(per_phase)
+    if missing:
+        fail(f"phases {sorted(missing)} reported no launches")
+    first = next(iter(per_phase.values()))
+    return {k: sum(p[k] for p in per_phase.values()) for k in first}
+
+
+def stop_groups(groups: dict) -> None:
+    """Kill any group still running (after a failure) and reap them all."""
+    for proc, _ in groups.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="build, then trace protocol and LM calls (no checks, no "
                              "result line)")
+    parser.add_argument("--lm-controls", type=int, default=0, metavar="N",
+                        help="build, then read each serving cell's super-block bound at "
+                             "seeds 0 .. N-1, sound and with faulted parameters (no result "
+                             "line)")
+    parser.add_argument("--group", choices=sorted(PHASE_GROUPS), help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3795,8 +4190,11 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs a CUDA card")
+    if args.group:
+        return run_group(args.group, args.seed)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}; "
+          f"host {host_launch_us()!r} us a tiny op")
 
     t_start = time.perf_counter()
     phase_build()
@@ -3804,41 +4202,47 @@ def main() -> int:
         phase_profile(args.seed)
         print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
         return 0
-    max_err = phase_kernels(args.seed)
-    max_err.update(phase_matching(args.seed))
-    max_err.update(phase_probe(args.seed))
-    t_flat = time.perf_counter()
-    for k, v in phase_flat_grids(args.seed).items():
-        max_err[k] = max(max_err[k], v)
-    print(f"[env] flattened-grid kernel checks {time.perf_counter() - t_flat:.1f} s")
-    t_fab = time.perf_counter()
-    for k, v in phase_fabric_kernels(args.seed).items():
-        max_err[k] = max(max_err[k], v)
-    print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
-    # Each kernel's launches: the sum over the paths.
-    paths, temporal_runs, chaos_runs, sweep_runs, fabric_runs = [], {}, {}, {}, {}
-    for name, phase in (("main", phase_main), ("lta", phase_lta), ("protocol", phase_protocol),
-                        ("temporal", lambda seed: phase_temporal(seed, N_SIDE, temporal_runs)),
-                        ("sweep", lambda seed: phase_sweep(seed, sweep_runs)),
-                        ("fabric", lambda seed: phase_fabric(seed, fabric_runs)),
-                        ("chaos", lambda seed: phase_chaos(seed, chaos_runs)),
-                        ("interconnect", phase_interconnect),
-                        ("campaign", lambda seed: phase_campaign(seed, temporal_runs)),
-                        ("mesh", lambda seed: phase_mesh(seed, sweep_runs, fabric_runs,
-                                                         chaos_runs)),
-                        ("obs", lambda seed: phase_obs(seed, temporal_runs, chaos_runs)),
-                        ("lm", phase_lm), ("train", phase_train), ("dist", phase_dist)):
-        t_phase = time.perf_counter()
-        paths.append(phase(args.seed))
-        print(f"[env] phase {name} {time.perf_counter() - t_phase:.1f} s")
-    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    if args.lm_controls:
+        phase_lm_controls(args.lm_controls)
+        print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
+        return 0
+    groups = start_groups(args.seed)
+    try:
+        t_kernels = time.perf_counter()
+        max_err = phase_kernels(args.seed)
+        max_err.update(phase_matching(args.seed))
+        max_err.update(phase_probe(args.seed))
+        print(f"[env] kernel checks {time.perf_counter() - t_kernels:.1f} s")
+        t_flat = time.perf_counter()
+        for k, v in phase_flat_grids(args.seed).items():
+            max_err[k] = max(max_err[k], v)
+        print(f"[env] flattened-grid kernel checks {time.perf_counter() - t_flat:.1f} s")
+        t_fab = time.perf_counter()
+        for k, v in phase_fabric_kernels(args.seed).items():
+            max_err[k] = max(max_err[k], v)
+        print(f"[env] fabric-shape kernel checks {time.perf_counter() - t_fab:.1f} s")
+        t_draw = time.perf_counter()
+        max_err["threefry"] = phase_draw_kernel(args.seed)
+        print(f"[env] draw kernel checks {time.perf_counter() - t_draw:.1f} s")
+        t_rec = time.perf_counter()
+        phase_records()
+        torch.cuda.empty_cache()
+        print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")
+        t_paths = time.perf_counter()
+        launches = finish_groups(groups)
+        print(f"[env] paths done {time.perf_counter() - t_paths:.1f} s after the checks "
+              f"beside them, {time.perf_counter() - t_start:.1f} s into the run")
+    finally:
+        stop_groups(groups)
     print(f"[env] launches over the main, LtA, protocol, temporal, sweep, fabric, chaos, "
           f"interconnect, campaign, mesh, obs, LM, training and distribution paths: "
           f"{launches}")
-    t_rec = time.perf_counter()
-    phase_records()
-    print(f"[env] phase_records {time.perf_counter() - t_rec:.1f} s")
+    t_timing = time.perf_counter()
     rows = phase_timing(args.seed)
+    print(f"[env] kernel timing {time.perf_counter() - t_timing:.1f} s")
+    t_draw = time.perf_counter()
+    draw_row = draw_timing(args.seed)
+    print(f"[env] draw kernel timing {time.perf_counter() - t_draw:.1f} s")
     print(f"[env] wall time {time.perf_counter() - t_start:.1f} s")
 
     smi = card()
@@ -3864,6 +4268,15 @@ def main() -> int:
             "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
+    # the draw kernel replaces no TPU kernel: the reference draws with XLA ops
+    ms, call_ms, plain, bound, by = draw_row
+    kernels.append({
+        "name": "threefry", "route": "cuda", "source": "src/repro_torch/kernels/csrc/threefry.cu",
+        "replaces": "none (src/repro/models/model.py:27 draws with jax.random's XLA ops)",
+        "launches": launches["threefry"], "max_abs_err": max_err["threefry"],
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -265,6 +265,20 @@ def replicated(mesh):
     return NamedSharding(mesh, ())
 
 
+def local_block(sh: NamedSharding, shape) -> tuple[tuple, tuple, tuple]:
+    """This rank's block of a tensor of ``shape`` placed by ``sh``: its
+    placements (the spec padded with None to the tensor's rank), and the
+    block's start and length in each dimension, as ``distribute_tensor``
+    cuts it (torch's chunks: uneven splits leave a short or empty last
+    shard; a dimension split over two axes is cut in the mesh's order)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    spec = tuple(sh.spec) + (None,) * (len(shape) - len(sh.spec))
+    placements = placements_for(sh.mesh, spec)
+    length, start = compute_local_shape_and_global_offset(tuple(shape), sh.mesh, placements)
+    return placements, tuple(start), tuple(length)
+
+
 def shard_leaf(t, sh: NamedSharding):
     """One tensor placed by ``sh`` on its ``DeviceMesh`` (``distribute_tensor``;
     real, fake or meta tensors alike).  A non-tensor leaf (a host int) is

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("feasibility.cu", "table_build.cu", "match.cu", "bottleneck.cu",
-           "probe.cu")
+           "probe.cu", "threefry.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 
@@ -115,6 +115,7 @@ def build_log() -> str:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U, _F, _LLP = ctypes.c_uint, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.cache
@@ -133,6 +134,8 @@ def library() -> ctypes.CDLL:
     lib.bottleneck_launch.restype = _I
     lib.probe_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     lib.probe_launch.restype = _I
+    lib.threefry_launch.argtypes = [_U, _U, _I, _LLP, _LLP, _LLP, _I, _F, _F, _F, _P, _P]
+    lib.threefry_launch.restype = _I
     return lib
 
 

@@ -26,12 +26,16 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from ..core import prng
 from ..core.sampling import resolve_device
 from ..distributed.ctx import constrain, is_dtensor, pin_grad, replicate_like, spec_for
+from ..kernels import threefry
+from ..tree import tree_leaves, tree_map
 from . import layers
 from .config import BlockSpec, ModelConfig
 
@@ -113,59 +117,91 @@ def _leaves(tree: Params):
         yield from blk.items()
 
 
-def init_params(seed_or_generator, cfg: ModelConfig, *, device=None,
-                shardings=None) -> Params:
-    """Random parameters by the reference's leaf rules: norms are ones,
-    ``A_log = log U[1, 16)``, ``conv_b`` and ``dt_bias`` zeros, ``D`` ones,
-    and the rest ``normal * fan_in ** -0.5`` cast to ``cfg.param_dtype``.
-
-    Draws from ``seed_or_generator`` (an int seed, or a ``torch.Generator``
-    on the target device), leaf after leaf; it does not reproduce
-    ``jax.random`` (carry the reference's parameters across with
-    ``convert.lm_params_from_numpy``).  The device is CUDA unless the caller
-    names one, and the default raises without CUDA.
-
-    ``shardings`` (a ``distributed.sharding.param_shardings`` tree) places
-    each leaf as soon as it is drawn, so a device holds its shards and one
-    whole leaf at a time, never the whole model; the values are those drawn
-    without it.
-    """
+def init_leaf(name: str, shape, dtype, key, *, start=None, length=None, device=None):
+    """One leaf by the reference's rules (``init_params``), or the block of
+    it at ``start`` of ``length`` (the whole leaf by default), drawn from
+    the leaf's ``key`` on ``device`` (CUDA unless the caller names one):
+    norms and ``D`` ones, ``conv_b`` and ``dt_bias`` zeros,
+    ``A_log = log U[1, 16)``, the rest ``normal * float32(fan_in ** -0.5)``,
+    cast to ``dtype``."""
     dev = resolve_device(device)
-    if isinstance(seed_or_generator, torch.Generator):
-        gen = seed_or_generator
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
+    shape = tuple(shape)
+    length = shape if length is None else tuple(length)
+    if "norm" in name or name == "D":
+        return torch.ones(length, dtype=dtype, device=dev)
+    if name in ("conv_b", "dt_bias"):
+        return torch.zeros(length, dtype=dtype, device=dev)
+    out = torch.empty(length, dtype=torch.float32, device=dev)
+    if name == "A_log":
+        # A in [1, 16) as in Mamba-2 reference init
+        threefry.threefry_draw(out, key, shape, start, mode=threefry.UNIFORM, lo=1.0, hi=16.0)
+        return out.log_().to(dtype)
+    fan_in = shape[-2] if len(shape) > 1 else shape[0]
+    threefry.threefry_draw(out, key, shape, start, mode=threefry.NORMAL, lo=threefry.NORMAL_LO,
+                           hi=threefry.NORMAL_HI, scale=float(np.float32(fan_in ** -0.5)))
+    return out.to(dtype)
 
-    def init_leaf(name, meta):
-        shape, dt = tuple(meta.shape), meta.dtype
-        if "norm" in name or name == "D":
-            return torch.ones(shape, dtype=dt, device=dev)
-        if name == "A_log":
-            # A in [1, 16) as in Mamba-2 reference init
-            u = torch.empty(shape, dtype=torch.float32, device=dev).uniform_(
-                1.0, 16.0, generator=gen)
-            return torch.log(u).to(dt)
-        if name in ("conv_b", "dt_bias"):
-            return torch.zeros(shape, dtype=dt, device=dev)
-        fan_in = shape[-2] if len(shape) > 1 else shape[0]
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.mul_(fan_in ** -0.5).to(dt)
 
-    def leaf(name, meta, sh):
-        t = init_leaf(name, meta)
-        if sh is None:
-            return t
-        from ..distributed.sharding import shard_leaf
-
-        return shard_leaf(t, sh)
-
+def leaf_keys(seed_or_key, cfg: ModelConfig) -> Params:
+    """Each leaf's raw key, in the parameters' tree: the reference's key
+    (``jax.random.key(seed)`` for an int seed, else the raw (2,) uint32 key
+    given) split over its leaves in its flatten order (sorted keys:
+    ``blocks`` with each block's keys sorted, then ``embed``,
+    ``final_norm``, ``lm_head``); every leaf uses up a key, the ones and
+    zeros too."""
+    if isinstance(seed_or_key, torch.Generator):
+        raise TypeError("init_params: a torch.Generator cannot draw the reference's "
+                        "parameters; pass the int seed or a raw (2,) uint32 key")
+    key = prng.key_from_seed(seed_or_key) if isinstance(seed_or_key, (int, np.integer)) \
+        else np.asarray(seed_or_key, dtype=np.uint32)
+    if key.shape != (2,):
+        raise ValueError("init_params: a seed (int) or a raw (2,) uint32 key, got "
+                         f"{type(seed_or_key).__name__} of shape {key.shape}")
     shapes = param_shapes(cfg)
-    sh = shardings or {"blocks": [{} for _ in shapes["blocks"]]}
-    out = {name: leaf(name, shapes[name], sh.get(name))
-           for name in ("embed", "final_norm", "lm_head")}
-    out["blocks"] = [{k: leaf(k, m, sh["blocks"][i].get(k)) for k, m in blk.items()}
-                     for i, blk in enumerate(shapes["blocks"])]
-    return out
+    # tree_map meets the leaves in the reference's flatten order
+    keys = iter(prng.split(key, len(tree_leaves(shapes)), partitionable=True))
+    return tree_map(lambda _: next(keys), shapes)
+
+
+def init_params(seed_or_key, cfg: ModelConfig, *, device=None, shardings=None) -> Params:
+    """The reference's ``init_params(jax.random.key(seed), cfg)``: each leaf
+    drawn from its key (``leaf_keys``) by its rules (``init_leaf``) with
+    ``jax.random``'s threefry counters (``kernels.threefry``: the CUDA
+    kernel on the card, the plain version on the CPU).  Raw bits and
+    uniforms are the reference's bit for bit and normals its eager draws'
+    (XLA:CPU's ``erf_inv`` step by step), within 2 ulp of its jitted ones
+    (XLA folds ``sqrt(2) * scale`` there); ``A_log``'s ``log`` is torch's,
+    within an ulp.  ``seed_or_key`` is an int seed or a raw (2,) uint32 key;
+    a ``torch.Generator`` cannot give these draws and is refused.  The
+    device is CUDA unless the caller names one, and the default raises
+    without CUDA.
+
+    ``shardings`` (a ``distributed.sharding.param_shardings`` tree) draws
+    each leaf as a ``DTensor``: each rank computes only the counters of its
+    own block (``sharding.local_block``: torch's chunks, uneven ones too)
+    and makes no tensor larger than that block, so a leaf larger than a
+    device starts fresh; the values are those drawn without it.
+    """
+    keys = leaf_keys(seed_or_key, cfg)
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+    names = {k: k for k in ("embed", "final_norm", "lm_head")}
+    names["blocks"] = [{k: k for k in blk} for blk in shapes["blocks"]]
+
+    def leaf(meta, name, key, sh=None):
+        if sh is None:
+            return init_leaf(name, meta.shape, meta.dtype, key, device=dev)
+        from torch.distributed.tensor import DTensor
+
+        from ..distributed.sharding import local_block
+
+        placements, start, length = local_block(sh, meta.shape)
+        local = init_leaf(name, meta.shape, meta.dtype, key, start=start, length=length,
+                          device=dev)
+        return DTensor.from_local(local, sh.mesh, placements, run_check=False,
+                                  shape=meta.shape, stride=meta.stride())
+
+    return tree_map(leaf, shapes, names, keys, *(() if shardings is None else (shardings,)))
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

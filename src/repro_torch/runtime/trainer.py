@@ -143,7 +143,8 @@ class Trainer:
     def init_state(self) -> TrainerState:
         """The latest checkpoint's params and ``opt/`` state restored onto
         the trainer's device, or fresh ones (``init_params`` seeded with
-        ``tcfg.seed``, zero moments)."""
+        ``tcfg.seed``: the reference's fresh start at that seed; zero
+        moments)."""
         latest = store.latest_step(self.tcfg.ckpt_dir)
         abstract_p = M.param_shapes(self.cfg)
         if latest is not None:
@@ -154,8 +155,8 @@ class Trainer:
             opt = store.restore(Path(self.tcfg.ckpt_dir) / "opt", latest, opt_abs,
                                 self.opt_shardings or on_device(opt_abs))
             return TrainerState(params=params, opt_state=opt, step=latest)
-        # each leaf is placed as it is drawn: the device holds the whole of
-        # one leaf at a time, not of the model
+        # the reference's draws from its seed; under shardings each rank
+        # draws only its own block of each leaf, never a whole sharded leaf
         params = M.init_params(self.tcfg.seed, self.cfg, device=self.device,
                                shardings=self.param_shardings)
         opt = adamw.init(self.opt_cfg, params)

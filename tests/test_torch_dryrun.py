@@ -11,7 +11,10 @@ on the CPU.
   gradient norm within 2 %; in f32 compute the loss within 1e-5 and every
   leaf's gradient within 1e-4 of that leaf's max |g|.  The parameters are
   drawn onto the mesh leaf by leaf (``init_params(shardings=)``), equal to
-  the plain draws.
+  the plain draws: each rank draws only its own blocks, its local shards
+  are ``distribute_tensor``'s slices of the whole draw bit for bit, and no
+  tensor made during the draw (counted by a ``TorchDispatchMode``) has more
+  elements than the rank's largest local shard.
 * The walker's forward FLOPs of a prefill equal the reference's
   ``hlo_walk.analyze`` of the jitted prefill exactly at one attention tile
   (at more tiles the port skips the tiles wholly above the diagonal, which
@@ -105,6 +108,28 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers, model as M
 from repro_torch.tree import tree_leaves
 
+from torch.distributed.tensor import distribute_tensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _outputs
+
+
+class _LargestOutput(TorchDispatchMode):
+    # the most elements of any tensor with storage (not "meta": the shapes
+    # of the leaves) that an op makes while the mode is on
+    numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _outputs(out):
+            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
 rank, world, port = map(int, sys.argv[1:4])
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                         world_size=world)
@@ -142,11 +167,22 @@ try:
         plain = dataclasses.replace(c, moe_impl="gather")
         l0 = M.loss_fn(params, plain, batch)[0]
         g0 = torch.autograd.grad(l0, leaves)
-        # drawn leaf by leaf onto the mesh: the plain draws, placed
-        pd = M.init_params(0, c, device="cpu", shardings=sharding.param_shardings(c, mesh))
+        # drawn leaf by leaf onto the mesh: the plain draws, placed; each
+        # rank draws only its own blocks, so its local shards are those
+        # slices of the whole draw bit for bit, and no tensor made during
+        # the draw is larger than the rank's largest local shard
+        psh = sharding.param_shardings(c, mesh)
+        with _LargestOutput() as seen:
+            pd = M.init_params(0, c, device="cpu", shardings=psh)
         dl = tree_leaves(pd)
         assert all(ctx.is_dtensor(t) and torch.equal(t.full_tensor(), w)
                    for t, w in zip(dl, leaves))
+        for t, w in zip(dl, leaves):
+            want = distribute_tensor(w.detach(), t.device_mesh, t.placements).to_local()
+            assert torch.equal(_bits(t.to_local()), _bits(want)), (c.name, t.placements)
+        largest = max(t.to_local().numel() for t in dl)
+        assert 0 < seen.numel <= largest, (c.name, seen.numel, largest)
+        out.setdefault("largest", []).append([seen.numel, largest, sum(w.numel() for w in leaves)])
         bd = sharding.shard_tree(batch, sharding.batch_shardings(c, mesh, False, batch=4))
         for t in dl:
             t.requires_grad_()
@@ -236,6 +272,9 @@ def test_moe_a2a_equals_reference_on_four_ranks():
         assert abs(l1 - l0) <= 1e-5, case
         for name, (err, gmax) in leaves.items():
             assert gmax > 0 and err <= 1e-4 * gmax, (case, name, err, gmax)
+    # every sharded draw on rank 0: no tensor made passed its largest local shard
+    assert len(got["largest"]) == 2 * 4
+    assert all(0 < seen <= largest < total for seen, largest, total in got["largest"])
     assert {"blocks.0.A_log", "blocks.0.dt_bias", "blocks.0.norm1", "final_norm"} <= \
         set(got["f32/mamba2-130m/gather"][2])
     assert "blocks.0.router" in got["f32/qwen3-moe-235b-a22b/a2a"][2]

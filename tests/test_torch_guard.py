@@ -229,9 +229,14 @@ def test_kernel_wrappers_launch_or_raise_off_the_cpu():
         masked_research(torch.empty((4, 1, 24), dtype=torch.int32, device="meta"),
                         torch.empty((4, 8), dtype=torch.bool, device="meta"),
                         torch.empty((4, 1), dtype=torch.int32, device="meta"))
+    from repro_torch.kernels.threefry import UNIFORM, threefry_draw
+
+    with pytest.raises(ValueError, match="CUDA"):
+        threefry_draw(torch.empty((4, 8), device="meta"), np.zeros(2, np.uint32), (4, 8),
+                      mode=UNIFORM)
     assert feasibility.launches == 0 and build_tables.launches == 0
     assert perfect_matching.launches == 0 and bottleneck_threshold.launches == 0
-    assert masked_research.launches == 0
+    assert masked_research.launches == 0 and threefry_draw.launches == 0
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -246,7 +251,7 @@ def test_matching_wrappers_refuse_more_than_64_lines(device):
 
 def test_nvcc_command_line_targets_hopper_without_contraction():
     cmds = _build.compile_commands("nvcc", Path("out"))
-    assert len(cmds) == len(_build.SOURCES) == 5
+    assert len(cmds) == len(_build.SOURCES) == 6
     for cmd in cmds + [_build.link_command("nvcc", Path("out"))]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a or "fast-math" in a for a in cmd)

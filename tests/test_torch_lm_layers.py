@@ -14,8 +14,10 @@ slot, ``keep`` and the per-expert counts) is held exactly.
   (meta tensors: nothing is allocated).
 * The registry (``ARCH_IDS``, ``get_config``, ``get_smoke``, ``SHAPES``,
   ``applicable``, ``microbatches_for``) equals the reference's.
-* ``init_params`` keeps the reference's leaf rules; ``lm_params_from_numpy``
-  carries a tree across bit for bit, bf16 included.
+* ``init_params`` keeps the reference's leaf rules (its seed and the raw key
+  of that seed give one draw; ``tests/test_torch_init.py`` holds the draws
+  to the reference's); ``lm_params_from_numpy`` carries a tree across bit
+  for bit, bf16 included.
 """
 import dataclasses
 
@@ -34,6 +36,7 @@ from repro.models import model as jm  # noqa: E402
 from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 
@@ -319,7 +322,7 @@ def test_init_params_leaf_rules(arch, dtype):
             assert abs(float(x.std()) * fan_in ** 0.5 - 1) < 0.1, name
         seen.add(name)
     assert {"norm1", "wq", "lm_head", "embed"} <= seen
-    again = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    again = tm.init_params(prng.key_from_seed(0), cfg, device="cpu")
     other = tm.init_params(1, cfg, device="cpu")
     for (_, a), (_, b), (_, c) in zip(tm._leaves(params), tm._leaves(again), tm._leaves(other)):
         assert torch.equal(a, b)
