@@ -25,6 +25,7 @@ from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 
+from ..obs.phase import span
 from . import ideal, metrics, prng
 from .grid import ArbitrationConfig
 from .lta_retry import sequential_retry
@@ -277,7 +278,8 @@ def oblivious_arbitrate(
     arbiter = scheme_spec(scheme).arbiter
     tables = build_search_tables(sys, tr_mean, visible=visible,
                                  max_alias=cfg.max_fsr_alias)
-    return arbiter(cfg, tables, chain_spec(cfg.s))
+    with span("arbiters.scheme", scheme=scheme):
+        return arbiter(cfg, tables, chain_spec(cfg.s))
 
 
 class EvalResult(NamedTuple):
@@ -314,19 +316,20 @@ def scheme_trials(
     classify against the scheme's ideal policy.  With per-point variations
     (1-D tensors, see ``sampling.instantiate``) every point's trials run in
     one batch, point-major."""
-    over = as_variations(variations)
-    policy = scheme_spec(scheme).policy
-    sys = instantiate(cfg, units, over)
-    tr = _trial_tr(over, cfg, sys)
-    ideal_ok = ideal.success(sys, policy, cfg.s, tr)
-    assign = oblivious_arbitrate(cfg, sys, tr, scheme)
-    out = classify(assign, cfg.s, policy=policy)
-    return SchemeTrials(
-        alg_success=out.success,
-        ideal_ok=ideal_ok,
-        lock_err=(out.zero_lock | out.dup_lock) & ideal_ok,
-        order_err=out.order_err & ideal_ok,
-    )
+    with span("sampling.scheme_trials"):
+        over = as_variations(variations)
+        policy = scheme_spec(scheme).policy
+        sys = instantiate(cfg, units, over)
+        tr = _trial_tr(over, cfg, sys)
+        ideal_ok = ideal.success(sys, policy, cfg.s, tr)
+        assign = oblivious_arbitrate(cfg, sys, tr, scheme)
+        out = classify(assign, cfg.s, policy=policy)
+        return SchemeTrials(
+            alg_success=out.success,
+            ideal_ok=ideal_ok,
+            lock_err=(out.zero_lock | out.dup_lock) & ideal_ok,
+            order_err=out.order_err & ideal_ok,
+        )
 
 
 def evaluate_scheme(
@@ -371,9 +374,10 @@ def policy_trials(
     variations: Variations | None = None,
 ) -> torch.Tensor:
     """The per-trial body of ``evaluate_policy``: (T,) bool ideal success."""
-    over = as_variations(variations)
-    sys = instantiate(cfg, units, over)
-    return ideal.success(sys, policy, cfg.s, _trial_tr(over, cfg, sys))
+    with span("sampling.policy_trials"):
+        over = as_variations(variations)
+        sys = instantiate(cfg, units, over)
+        return ideal.success(sys, policy, cfg.s, _trial_tr(over, cfg, sys))
 
 
 def evaluate_policy(
@@ -416,15 +420,16 @@ def policy_trial_min_tr(
     """(T,) per-trial ideal minimum mean TR at the given variation overrides
     (every point's trials, for per-point overrides; the ``sigma_*=``
     keywords as in ``evaluate_scheme``)."""
-    over = _eval_variations(
-        variations, None,
-        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
-             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
-             fsr_mean=fsr_mean),
-        caller="policy_min_tr", allow_tr=False,
-    )
-    sys = instantiate(cfg, units, over)
-    return ideal.min_tr(sys, policy, cfg.s)
+    with span("sampling.policy_trial_min_tr"):
+        over = _eval_variations(
+            variations, None,
+            dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+                 sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+                 fsr_mean=fsr_mean),
+            caller="policy_min_tr", allow_tr=False,
+        )
+        sys = instantiate(cfg, units, over)
+        return ideal.min_tr(sys, policy, cfg.s)
 
 
 def policy_min_tr(

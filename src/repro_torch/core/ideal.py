@@ -14,6 +14,7 @@ import torch
 
 from ..kernels.bitmask_match import bottleneck_threshold
 from ..kernels.feasibility import feasibility, per_shift_min_tr
+from ..obs.phase import span
 from .matching import has_perfect_matching
 from .reach import reach_matrix, scaled_residual, trial_value
 from .sampling import SystemBatch
@@ -41,6 +42,11 @@ def lta_min_tr(sys: SystemBatch) -> torch.Tensor:
 
 def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
     """(T,) per-trial minimum mean tuning range for the policy."""
+    with span("arbiters.ideal", policy=policy):
+        return _min_tr(sys, policy, s)
+
+
+def _min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
     if policy == "ltd":
         return ltd_min_tr(sys, s)
     if policy == "ltc":
@@ -53,6 +59,7 @@ def min_tr(sys: SystemBatch, policy: str, s) -> torch.Tensor:
 def success(sys: SystemBatch, policy: str, s, tr_mean) -> torch.Tensor:
     """(T,) bool ideal arbitration success at the given mean tuning range
     (a scalar, or one per trial)."""
-    if policy == "lta":
-        return has_perfect_matching(reach_matrix(sys, tr_mean))
-    return min_tr(sys, policy, s) <= trial_value(tr_mean, sys.laser.device, 1)
+    with span("arbiters.ideal", policy=policy):
+        if policy == "lta":
+            return has_perfect_matching(reach_matrix(sys, tr_mean))
+        return _min_tr(sys, policy, s) <= trial_value(tr_mean, sys.laser.device, 1)

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.phase import span
 from .ssm import Assignment
 
 
@@ -24,6 +25,11 @@ class Outcome(NamedTuple):
 
 
 def classify(assign: Assignment, s, policy: str = "ltc") -> Outcome:
+    with span("arbiters.classify"):
+        return _classify(assign, s, policy)
+
+
+def _classify(assign: Assignment, s, policy: str) -> Outcome:
     wl = assign.wl                                   # (T, N)
     T, n = wl.shape
     zero = torch.any(wl < 0, dim=1)

@@ -51,6 +51,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..kernels.probe import masked_research
+from ..obs.phase import count, span
 from ..obs.trace import (
     EV_DISPLACE,
     EV_HALT,
@@ -429,81 +430,90 @@ def run_protocol(
     resumed complete and the bound for one that never completed;
     ``stats.worked`` counts the rounds a trial really executed.
     """
-    t, n, _ = tables.wl.shape
-    dev = tables.wl.device
-    dep = n if depth is None else int(depth)
-    rounds = default_rounds(n) if n_rounds is None else int(n_rounds)
-    order_idx = _controller_order(tables, spec, order)
-    has_peaks = tables.n_valid > 0
+    with span("protocol.run"):
+        t, n, _ = tables.wl.shape
+        dev = tables.wl.device
+        dep = n if depth is None else int(depth)
+        rounds = default_rounds(n) if n_rounds is None else int(n_rounds)
+        order_idx = _controller_order(tables, spec, order)
+        has_peaks = tables.n_valid > 0
 
-    state0 = cold_state(t, n, dev) if init_state is None else init_state
-    # Trials resumed complete never enter the loop: round 0.  Cold starts
-    # leave -1.
-    done0 = torch.where((state0.lock >= 0).all(dim=1), 0, -1).to(torch.int32)
-    done_round = done0
-    halted = torch.zeros((t,), dtype=torch.bool, device=dev)
-    plateau = torch.zeros((t,), dtype=torch.int32, device=dev)
-    halt_round = torch.full((t,), -1, dtype=torch.int32, device=dev)
-    state = state0
-    buf = None if trace is None else trace_buffer(t, int(trace), dev)
-    rnd = 0
-    while rnd < rounds:
-        # A trial is live while a starved ring with a nonempty table could
-        # still act and the trial is not halted.  One sync per round.
-        live = ((state.lock < 0) & has_peaks).any(dim=1)
-        if not bool((live & ~halted).any()):
-            break
-        prev = state
+        state0 = cold_state(t, n, dev) if init_state is None else init_state
+        # Trials resumed complete never enter the loop: round 0.  Cold starts
+        # leave -1.
+        done0 = torch.where((state0.lock >= 0).all(dim=1), 0, -1).to(torch.int32)
+        done_round = done0
+        halted = torch.zeros((t,), dtype=torch.bool, device=dev)
+        plateau = torch.zeros((t,), dtype=torch.int32, device=dev)
+        halt_round = torch.full((t,), -1, dtype=torch.int32, device=dev)
+        state = state0
+        buf = None if trace is None else trace_buffer(t, int(trace), dev)
+        rnd = 0
+        while rnd < rounds:
+            with span("protocol.round"):
+                # A trial is live while a starved ring with a nonempty table could
+                # still act and the trial is not halted.  One sync per round.
+                live = ((state.lock < 0) & has_peaks).any(dim=1)
+                pending = (live & ~halted).any()
+                with span("protocol.sync"):
+                    if not bool(pending):
+                        break
+                count("protocol.rounds")
+                prev = state
+                if buf is not None:
+                    prev_buf = clone_trace(buf)
+                with span("protocol.probe"):
+                    state = _probe_phase(tables, order_idx, state, buf, rnd)
+                if dep > 0:
+                    with span("protocol.augment"):
+                        state = _augment_phase(tables, state, dep, n_seekers, k_donors, buf, rnd)
+                with span("protocol.release"):
+                    state = _release_phase(state, buf, rnd)
+                changed = ((state.lock != prev.lock).any(dim=1)
+                           | (state.entry != prev.entry).any(dim=1)
+                           | (state.cursor != prev.cursor).any(dim=1))
+                h = halted[:, None]
+                state = ProtocolState(
+                    lock=torch.where(h, prev.lock, state.lock),
+                    entry=torch.where(h, prev.entry, state.entry),
+                    cursor=torch.where(h, prev.cursor, state.cursor),
+                    probes=torch.where(halted, prev.probes, state.probes),
+                )
+                if buf is not None:
+                    # A frozen trial's events of this round go with its state changes.
+                    buf = merge_traces(halted, prev_buf, buf)
+                was_halted = halted
+                halted = halted | (live & ~changed)
+                if patience is not None:
+                    improved = _n_locked(state.lock) > _n_locked(prev.lock)
+                    plateau = torch.where(improved | halted, 0, plateau + 1)
+                    halted = halted | (live & (plateau >= int(patience)))
+                halt_round = torch.where(halted & ~was_halted & (halt_round < 0),
+                                         rnd + 1, halt_round)
+                complete = (state.lock >= 0).all(dim=1)
+                done_round = torch.where(complete & (done_round < 0), rnd + 1, done_round)
+                if buf is not None:
+                    trace_append(buf, halted & ~was_halted, rnd + 1, -1, EV_HALT, -1)
+                rnd += 1
+        if transactional:
+            state, commit = _commit(state, state0)
+            done_round = torch.where(commit, done_round, done0)
+        assign = _finalize(tables, state)
+        out = (assign,)
+        if with_stats:
+            out += (ProtocolStats(
+                probes=state.probes,
+                rounds=torch.where(done_round < 0, rounds, done_round).to(torch.int32),
+                locked=_n_locked(state.lock),
+                worked=torch.where(
+                    done_round >= 0, done_round,
+                    torch.where(halt_round >= 0, halt_round, rounds)).to(torch.int32),
+            ),)
+        if with_state:
+            out += (state,)
         if buf is not None:
-            prev_buf = clone_trace(buf)
-        state = _probe_phase(tables, order_idx, state, buf, rnd)
-        if dep > 0:
-            state = _augment_phase(tables, state, dep, n_seekers, k_donors, buf, rnd)
-        state = _release_phase(state, buf, rnd)
-        changed = ((state.lock != prev.lock).any(dim=1)
-                   | (state.entry != prev.entry).any(dim=1)
-                   | (state.cursor != prev.cursor).any(dim=1))
-        h = halted[:, None]
-        state = ProtocolState(
-            lock=torch.where(h, prev.lock, state.lock),
-            entry=torch.where(h, prev.entry, state.entry),
-            cursor=torch.where(h, prev.cursor, state.cursor),
-            probes=torch.where(halted, prev.probes, state.probes),
-        )
-        if buf is not None:
-            # A frozen trial's events of this round go with its state changes.
-            buf = merge_traces(halted, prev_buf, buf)
-        was_halted = halted
-        halted = halted | (live & ~changed)
-        if patience is not None:
-            improved = _n_locked(state.lock) > _n_locked(prev.lock)
-            plateau = torch.where(improved | halted, 0, plateau + 1)
-            halted = halted | (live & (plateau >= int(patience)))
-        halt_round = torch.where(halted & ~was_halted & (halt_round < 0),
-                                 rnd + 1, halt_round)
-        complete = (state.lock >= 0).all(dim=1)
-        done_round = torch.where(complete & (done_round < 0), rnd + 1, done_round)
-        if buf is not None:
-            trace_append(buf, halted & ~was_halted, rnd + 1, -1, EV_HALT, -1)
-        rnd += 1
-    if transactional:
-        state, commit = _commit(state, state0)
-        done_round = torch.where(commit, done_round, done0)
-    assign = _finalize(tables, state)
-    out = (assign,)
-    if with_stats:
-        out += (ProtocolStats(
-            probes=state.probes,
-            rounds=torch.where(done_round < 0, rounds, done_round).to(torch.int32),
-            locked=_n_locked(state.lock),
-            worked=torch.where(done_round >= 0, done_round,
-                               torch.where(halt_round >= 0, halt_round, rounds)).to(torch.int32),
-        ),)
-    if with_state:
-        out += (state,)
-    if buf is not None:
-        out += (buf,)
-    return out if len(out) > 1 else assign
+            out += (buf,)
+        return out if len(out) > 1 else assign
 
 
 def run_protocol_trace(

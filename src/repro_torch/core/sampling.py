@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.phase import span
 from . import prng
 from .grid import ArbitrationConfig
 from .variations import (Variations, apply_axis_transforms, is_per_point,
@@ -131,13 +132,19 @@ def instantiate(
     The rest of the arithmetic follows the reference's un-jitted
     ``instantiate`` term for term, bit for bit on the same units.
     """
-    over = merge_legacy_overrides(
-        variations,
-        dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
-             sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
-             fsr_mean=fsr_mean),
-        caller="instantiate",
-    )
+    with span("sampling.instantiate"):
+        over = merge_legacy_overrides(
+            variations,
+            dict(sigma_rlv=sigma_rlv, sigma_go=sigma_go, sigma_llv_frac=sigma_llv_frac,
+                 sigma_fsr_frac=sigma_fsr_frac, sigma_tr_frac=sigma_tr_frac,
+                 fsr_mean=fsr_mean),
+            caller="instantiate",
+        )
+        return _systems(cfg, units, over)
+
+
+def _systems(cfg: ArbitrationConfig, units: UnitSamples, over: Variations) -> SystemBatch:
+    """``instantiate``'s arithmetic, on the merged overrides."""
     grid = cfg.grid
     dev = units.u_llv.device
     n_points = point_count(over)

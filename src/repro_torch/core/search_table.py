@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..kernels.table_build import build_tables
+from ..obs.phase import span
 from .reach import trial_value
 from .sampling import SystemBatch
 
@@ -59,13 +60,14 @@ def build_search_tables(
       (same for every ring) or (T, N_ring, N_wl) (per searching ring).
       None = all lines visible.
     """
-    n = sys.n_ch
-    tr = trial_value(tr_mean, sys.tr_unit.device, 2) * sys.tr_unit
-    delta, wl, n_valid = build_tables(
-        sys.laser, sys.ring, sys.fsr, tr, visible=visible, max_alias=max_alias,
-        max_entries=max_entries_for(n) if max_entries is None else max_entries,
-    )
-    return SearchTables(delta=delta, wl=wl, n_valid=n_valid)
+    with span("arbiters.tables"):
+        n = sys.n_ch
+        tr = trial_value(tr_mean, sys.tr_unit.device, 2) * sys.tr_unit
+        delta, wl, n_valid = build_tables(
+            sys.laser, sys.ring, sys.fsr, tr, visible=visible, max_alias=max_alias,
+            max_entries=max_entries_for(n) if max_entries is None else max_entries,
+        )
+        return SearchTables(delta=delta, wl=wl, n_valid=n_valid)
 
 
 def mask_wavelength(tables: SearchTables, ring: int, wl_id: torch.Tensor) -> torch.Tensor:

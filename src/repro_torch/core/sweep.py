@@ -48,10 +48,10 @@ one batch of links, and each link chunk one batch of 2 trials a link.
 ``make_sweep_mesh``) splits the chunk axis of grid points over devices
 (``chunked_map``): bit-identical to the unsharded engine and invariant to the
 mesh size.  Under an installed ``repro_torch.obs.phase``
-recorder a sweep notes its chunk plan (``sweep.plan``, and
-``chunked_map.sweep_points``) and runs its points through
-``measured_call`` (an ``execute`` span, and the device watermark under
-``measure_memory``).
+recorder a sweep is one ``sweep.request`` span, notes its chunk plan
+(``sweep.plan``, and ``chunked_map.sweep_points``) and runs its points
+through ``measured_call`` (an ``execute`` span, and the device watermark
+under ``measure_memory``).
 
 ``sweep_reference`` is the per-point loop over the single-point entry
 points: the engine's oracle, consuming the same validated ``SweepRequest``.
@@ -80,7 +80,7 @@ from .search_table import max_entries_for
 from .temporal import TemporalStats, Timeline, run_timeline_impl
 from .variations import Variations, _maybe_validate, axis_names, axis_spec
 from ..launch.mesh import SweepMesh, check_mesh
-from ..obs.phase import current_recorder, measured_call, note
+from ..obs.phase import current_recorder, measured_call, note, span
 
 #: Per-chunk device-memory budget for automatic chunk sizing [bytes]: 4 GiB,
 #: 5 % of an 80 GB card.
@@ -531,7 +531,13 @@ def _afp_from_trial_min_tr(trial_min_tr: torch.Tensor, tr_values) -> torch.Tenso
 def sweep(request: SweepRequest) -> SweepResult:
     """Evaluate a ``SweepRequest``: the engine's single entry point
     (``sweep_policy`` / ``sweep_scheme`` / ``sweep_min_tr`` / ``sweep_grid``
-    wrap it).  Returns the grid(s) and the axis metadata."""
+    wrap it).  Returns the grid(s) and the axis metadata.  Under a phase
+    recorder the whole call is the request's root span, ``sweep.request``."""
+    with span("sweep.request"):
+        return _sweep(request)
+
+
+def _sweep(request: SweepRequest) -> SweepResult:
     cfg, units = request.cfg, request.units
     policy, scheme, metric = request.policy, request.scheme, request.metric
     names, points, shape = _grid_points(request.axes)

@@ -5,9 +5,9 @@ disabled paths running exactly the uninstrumented code:
 
 - ``repro_torch.obs.trace``    per-trial protocol event rings
                                (``run_protocol(trace=)``)
-- ``repro_torch.obs.phase``    timing spans + device-memory watermarks
-                               (contextvar recorder picked up by ``sweep``
-                               and ``bringup``)
+- ``repro_torch.obs.phase``    timing spans, counters + device-memory
+                               watermarks (contextvar recorder picked up
+                               at the port's layer boundaries)
 - ``repro_torch.obs.health``   per-step x per-link chaos health codes
                                (``run_fabric_timeline(health=True)``)
 - ``repro_torch.obs.taxonomy`` post-hoc failure classifier over traces
@@ -25,6 +25,7 @@ from .health import HEALTH_CODES, health_codes, health_matrix_summary
 from .phase import (
     PhaseRecorder,
     Span,
+    count,
     current_recorder,
     measured_call,
     note,
@@ -70,6 +71,7 @@ __all__ = [
     "PhaseRecorder",
     "Span",
     "TraceBuffer",
+    "count",
     "current_recorder",
     "format_events",
     "health_codes",

@@ -38,7 +38,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.sampling import resolve_device
 
 EV_PROBE = 0
 EV_LOCK = 1
@@ -71,6 +70,8 @@ def trace_buffer(n_trials: int, cap: int, device=None) -> TraceBuffer:
     on ``device`` (CUDA unless named)."""
     if cap < 1:
         raise ValueError(f"trace capacity must be >= 1, got {cap}")
+    from ..core.sampling import resolve_device  # local: core.sampling imports obs.phase
+
     kw = dict(dtype=torch.int32, device=resolve_device(device))
     return TraceBuffer(
         ev=torch.full((n_trials, cap, 4), -1, **kw),

@@ -314,7 +314,12 @@ def test_recorder_leaves_bringup_bit_identical():
     plan = next(n for n in rec.notes if n["name"] == "bringup.plan")
     assert plan["links"] == FABRIC_TINY.n_links and plan["n_chunks"] == 1
     assert "chunked_map.bringup_links" in [n["name"] for n in rec.notes]
-    assert [s.name for s in rec.spans] == ["bringup"] and rec.memory_fields() == []
+    # one root, the bring-up's execute span, closed last; every span below it
+    roots = [s for s in rec.spans if s.parent_id == -1]
+    assert [s.name for s in roots] == ["bringup"] and rec.spans[-1] is roots[0]
+    assert roots[0].kind == "execute" and len(rec.spans) > 1
+    assert all(s.root_id == roots[0].span_id for s in rec.spans)
+    assert rec.memory_fields() == []
 
 
 def test_phase_helpers_are_noops_without_recorder(tables):
@@ -331,17 +336,114 @@ def test_phase_helpers_are_noops_without_recorder(tables):
 def test_recorder_span_nesting_and_current_path():
     rec = PhaseRecorder()
     with use_recorder(rec):
-        with rec.span("outer"):
-            with rec.span("inner", kind="execute"):
-                assert rec.current_path() == "outer/inner" and rec.current == "inner"
-            with span("module-level"):
+        with rec.span("outer") as outer:
+            with rec.span("inner", kind="execute") as inner:
+                assert inner.parent_id == outer.span_id and inner.end_ns == -1
+            with span("module-level") as mod:
                 pass
-        assert rec.current_path() is None
         out = measured_call("call", lambda x: x + 1, (torch.ones(2),), {})
+    call = rec.spans[-1]
+    assert [s.name for s in rec.spans] == ["inner", "module-level", "outer", "call"]
+    assert outer.parent_id == -1 and outer.root_id == outer.span_id
+    assert inner.root_id == mod.root_id == outer.span_id and mod.parent_id == outer.span_id
+    assert call.parent_id == -1 and call.root_id == call.span_id != outer.span_id
+    assert outer.start_ns <= inner.start_ns <= inner.end_ns <= mod.start_ns <= outer.end_ns
     by = rec.phase_fields()
     assert by["outer"]["count"] == 1 and by["inner"]["kind"] == "execute"
     assert by["module-level"]["kind"] == "host" and by["call"]["kind"] == "execute"
     assert torch.equal(out, torch.full((2,), 2.0)) and rec.memory_fields() == []
+
+
+#: The port's layer spans of one grid, span -> the span it opens under.
+_SCHEME_TREE = {"sweep.request": None, "sweep": "sweep.request",
+                "sampling.scheme_trials": "sweep", "sampling.instantiate":
+                "sampling.scheme_trials", "arbiters.ideal": "sampling.scheme_trials",
+                "arbiters.tables": "sampling.scheme_trials",
+                "arbiters.scheme": "sampling.scheme_trials",
+                "arbiters.classify": "sampling.scheme_trials"}
+_PROTOCOL_TREE = {**_SCHEME_TREE, "protocol.run": "arbiters.scheme",
+                  "protocol.round": "protocol.run", "protocol.sync": "protocol.round",
+                  "protocol.probe": "protocol.round", "protocol.augment": "protocol.round",
+                  "protocol.release": "protocol.round"}
+_LTA_TREE = {"sweep.request": None, "sweep": "sweep.request",
+             "sampling.policy_trial_min_tr": "sweep",
+             "sampling.instantiate": "sampling.policy_trial_min_tr",
+             "arbiters.ideal": "sampling.policy_trial_min_tr"}
+
+
+_SIGMA_TR = {"sigma_rlv": np.array([1.12, 2.24], np.float32),
+             "tr_mean": np.linspace(1.5, 5.5, 3, dtype=np.float32)}
+
+
+@pytest.mark.parametrize("target,axes,tree", [
+    ({"scheme": "vtrs_ssm"}, _SIGMA_TR, _SCHEME_TREE),
+    ({"policy": "lta"}, _SIGMA_TR, _LTA_TREE),            # the TR fast path
+    # seed 9's 2 x 2 units run 3 rounds here: a few, not the 32 of a grid
+    # with a trial that never completes (each round ~40 ms on the CPU)
+    ({"scheme": "protocol_lta"}, {"tr_mean": np.array([3.0, 3.25, 3.5], np.float32)},
+     _PROTOCOL_TREE),
+], ids=["scheme", "lta-tr-fast", "protocol"])
+def test_recorder_layer_spans_nest_under_one_request(monkeypatch, target, axes, tree):
+    units = make_units(CFG, 9, 2, 2, device="cpu")
+    req = SweepRequest(cfg=CFG, units=units, **target, axes=axes)
+    bare = sweep(req)
+    probes = []
+    probe_phase = tproto._probe_phase
+    monkeypatch.setattr(tproto, "_probe_phase", lambda *a: probes.append(1) or probe_phase(*a))
+    rec = PhaseRecorder()
+    with use_recorder(rec):
+        recd = sweep(req)
+    _same(bare.data, recd.data)
+    by_id = {s.span_id: s for s in rec.spans}
+    root = rec.spans[-1]
+    assert root.name == "sweep.request" and [s.parent_id for s in rec.spans].count(-1) == 1
+    assert {s.name for s in rec.spans} == set(tree)
+    for s in rec.spans:
+        parent = by_id.get(s.parent_id)
+        assert (parent.name if parent else None) == tree[s.name], s
+        assert s.root_id == root.span_id
+        if parent is not None:
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    names = [s.name for s in rec.spans]
+    # one request runs one chunk: each layer span once, the protocol's once a round
+    assert all(names.count(n) == 1 for n in tree if not n.startswith("protocol."))
+    assert rec.counters.get("protocol.rounds", 0) == len(probes) == names.count("protocol.probe")
+    if "protocol.run" in tree:
+        assert len(probes) > 1 and names.count("protocol.sync") == names.count("protocol.round")
+        assert names.count("protocol.round") in (len(probes), len(probes) + 1)
+
+
+def test_no_span_or_counter_without_recorder(monkeypatch):
+    from repro_torch.obs import phase
+
+    assert current_recorder() is None
+    assert span("a") is span("b", kind="execute", x=1)        # the one shared nullcontext
+
+    def refuse(*a, **k):
+        raise AssertionError("a span or counter was made with no recorder installed")
+    monkeypatch.setattr(phase, "_Opened", refuse)
+    monkeypatch.setattr(phase.PhaseRecorder, "count", refuse)
+    units = make_units(CFG, 9, 2, 2, device="cpu")
+    sweep(SweepRequest(cfg=CFG, units=units, scheme="protocol_lta",
+                       axes={"tr_mean": np.array([3.0, 3.25, 3.5], np.float32)}))
+    phase.count("protocol.rounds")
+
+
+def test_span_stamps_on_the_profilers_clock():
+    """A recorder span and a ``record_function`` range around the same 20 ms
+    sleep start and end within 2 ms of each other."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rec = PhaseRecorder()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, use_recorder(rec):
+        with span("clock.sleep") as s, record_function("clock.sleep.range"):
+            time.sleep(0.02)
+    ev = next(e for e in prof.profiler.kineto_results.events() if e.name() == "clock.sleep.range")
+    assert abs(ev.start_ns() - s.start_ns) < 2_000_000, (ev.start_ns(), s.start_ns)
+    assert abs(ev.end_ns() - s.end_ns) < 2_000_000, (ev.end_ns(), s.end_ns)
+    assert s.ms >= 20.0
 
 
 def test_fabric_health_matrix_parity_and_consistency():
